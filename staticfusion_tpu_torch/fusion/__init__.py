@@ -1,0 +1,1 @@
+"""fusion layer of the PyTorch port (see staticfusion_tpu_torch/__init__.py)."""
