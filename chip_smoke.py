@@ -12,12 +12,18 @@ Phases (each prints one line; any failure exits non-zero):
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      same inputs (plain version run on the CPU), with the stated
      tolerances; times of kernel and plain version on the card (CUDA
-     events) at the main path's shapes;
-  4. main path: SlamSystem(SFConfig(), device="cuda") over a 30-frame
+     events) at the main path's shapes, beside the kernel's bound (the
+     larger of its bytes over HBM bandwidth and its flop over the float32
+     peak) and, for K2, beside torch.linalg's call.  K3 at all five QVGA
+     level sizes;
+  4. main path: SlamSystem(SFConfig()) on the card over a 30-frame
      synthetic static QVGA sequence (seed 0): ATE, finiteness, surfel
      counts, per-kernel launch counts of that run, median ms/frame;
   5. card vs CPU: the first 6 frames through the port on the card and on
      the CPU, poses and surfel counts compared;
+  6. K3 profile: torch.profiler counts the device kernels of one K3 call
+     at each level size (exactly one).  Last, because a profiler run
+     before the main path coincided with slower frames;
 then a JSON line with the kernels, and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -40,6 +46,20 @@ CROSS_FRAMES = 6
 # one IRLS convergence test (a change of up to one IRLS step, ~1.5e-3).
 POSE_TOL = 2e-3
 COUNT_TOL = 0.01
+# Published peaks of one H100 SXM (NVIDIA's data sheet, full 700 W):
+# HBM bandwidth and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# QVGA pyramid level sizes, level 0 first (K3's N per solve).
+LEVEL_SIZES = (76800, 19200, 4800, 1200, 300)
+# Flop per in-image bilateral tap: diff, square, the exponent's FMA, expf
+# counted as one, the two weighted sums (an FMA is 2).
+K1_FLOP_PER_TAP = 8
+# K3 flop per pixel: per iteration pass 0 (residuals 24 + 4, weights 10,
+# weighted rows 14, normal equations 108) and pass 1 (residuals 26,
+# sums 6); once the prologue's two sums.
+K3_FLOP_PER_PIXEL_ITER = 160 + 32
+K3_FLOP_PER_PIXEL_ONCE = 2
 
 
 class SmokeError(RuntimeError):
@@ -65,6 +85,21 @@ def cuda_ms(fn, reps, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flop):
+    """(bound_ms, bound_by): the least time of the work on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flop = flop / FP32_FLOP_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_flop
+            else (t_flop, "operations"))
+
+
+def bilateral_taps(rows, cols, r=6):
+    """In-image taps of a (2r+1)^2 stencil over a rows x cols image."""
+    def per_axis(m):
+        return sum(min(x + r, m - 1) - max(x - r, 0) + 1 for x in range(m))
+    return per_axis(rows) * per_axis(cols)
 
 
 def depth_image(rng, rows, cols):
@@ -163,10 +198,13 @@ def phase_k1(rows_list=((240, 320), (480, 640))):
                         device="cuda")
     ms = cuda_ms(lambda: bilateral_filter_mm_cuda(d, 4.5), 200)
     plain_ms = cuda_ms(lambda: bilateral_filter_mm_plain(d, 4.5), 10)
+    bound_ms, bound_by = bound(2 * d.numel() * 4,
+                               K1_FLOP_PER_TAP * bilateral_taps(240, 320))
     print(f"[K1 bilateral] ok: 240x320 and 480x640 within 1 mm, <1e-3 "
-          f"pixels differ; 240x320 {ms:.4f} ms vs plain {plain_ms:.4f} ms",
-          flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"pixels differ; 240x320 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_k2():
@@ -204,34 +242,64 @@ def phase_k2():
                                    err_msg=f"K2 inverse n={n}")
         err_inv = max(err_inv, float((inv - spd_inverse(
             torch.as_tensor(spd))).abs().max()))
-    rng = np.random.default_rng(6)
-    a = rng.normal(size=(6, 6)).astype(np.float32)
-    M6 = torch.as_tensor(a @ a.T + 6 * np.eye(6, dtype=np.float32),
-                         device="cuda")
-    b6 = torch.as_tensor(rng.normal(size=6).astype(np.float32),
-                         device="cuda")
-    t = {"solve": cuda_ms(lambda: spd_solve_cuda(M6, b6), 500),
-         "solve_plain": cuda_ms(lambda: spd_solve(M6, b6), 20),
-         "inv": cuda_ms(lambda: spd_inverse_cuda(M6, 1e-12), 500),
-         "inv_plain": cuda_ms(lambda: spd_inverse(M6, 1e-12), 20)}
+    # Times at 6x6 (the motion filter, the main path's shape) and 24x24
+    # (the segmentation system), beside torch.linalg's one call for the
+    # same function: solve (which checks for errors on the host) and
+    # solve_ex (which does not), inv and inv_ex.  The inverse's ridge of
+    # 1e-12 is added to the library's input beforehand.
+    times = {}
+    for n in (6, 24):
+        rng = np.random.default_rng(n)
+        a = rng.normal(size=(n, n)).astype(np.float32)
+        M = torch.as_tensor(a @ a.T + n * np.eye(n, dtype=np.float32),
+                            device="cuda")
+        b = torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                            device="cuda")
+        Mr = M + 1e-12 * torch.eye(n, device="cuda")
+        times[n] = {
+            "solve": cuda_ms(lambda: spd_solve_cuda(M, b), 500),
+            "solve_plain": cuda_ms(lambda: spd_solve(M, b), 20),
+            "solve_lib": cuda_ms(lambda: torch.linalg.solve(M, b), 200),
+            "solve_lib_ex": cuda_ms(lambda: torch.linalg.solve_ex(M, b),
+                                    200),
+            "inv": cuda_ms(lambda: spd_inverse_cuda(M, 1e-12), 500),
+            "inv_plain": cuda_ms(lambda: spd_inverse(M, 1e-12), 20),
+            "inv_lib": cuda_ms(lambda: torch.linalg.inv(Mr), 200),
+            "inv_lib_ex": cuda_ms(lambda: torch.linalg.inv_ex(Mr), 200)}
+        # Cholesky n^3/3, then 2 n^2 per right-hand side.
+        times[n]["solve_bound"] = bound(4 * (n * n + 2 * n),
+                                        n ** 3 / 3 + 2 * n * n)
+        times[n]["inv_bound"] = bound(4 * 2 * n * n,
+                                      n ** 3 / 3 + 2 * n ** 3)
     print(f"[K2 smallsolve] ok: n in {{6, 24}} + 8 random n 2..32 at scales "
-          f"1e-2..1e2 within rtol 2e-3 of float64; 6x6 solve "
-          f"{t['solve']:.4f} ms vs plain {t['solve_plain']:.4f} ms, 6x6 "
-          f"inverse {t['inv']:.4f} ms vs plain {t['inv_plain']:.4f} ms",
-          flush=True)
+          f"1e-2..1e2 within rtol 2e-3 of float64", flush=True)
+    for n, t in times.items():
+        print(f"  {n}x{n} solve {t['solve']:.4f} ms vs plain "
+              f"{t['solve_plain']:.4f}, torch.linalg.solve "
+              f"{t['solve_lib']:.4f}, solve_ex {t['solve_lib_ex']:.4f}, bound "
+              f"{t['solve_bound'][0]:.3e} ({t['solve_bound'][1]}); inverse "
+              f"{t['inv']:.4f} ms vs plain {t['inv_plain']:.4f}, "
+              f"torch.linalg.inv {t['inv_lib']:.4f}, inv_ex "
+              f"{t['inv_lib_ex']:.4f}, bound {t['inv_bound'][0]:.3e} "
+              f"({t['inv_bound'][1]})", flush=True)
+    t = times[6]
     return ({"max_abs_err": err_solve, "ms": t["solve"],
-             "plain_ms": t["solve_plain"]},
+             "plain_ms": t["solve_plain"], "bound_ms": t["solve_bound"][0],
+             "bound_by": t["solve_bound"][1], "library_ms": t["solve_lib"]},
             {"max_abs_err": err_inv, "ms": t["inv"],
-             "plain_ms": t["inv_plain"]})
+             "plain_ms": t["inv_plain"], "bound_ms": t["inv_bound"][0],
+             "bound_by": t["inv_bound"][1], "library_ms": t["inv_lib"]})
 
 
 def phase_k3():
     import torch
 
-    from staticfusion_tpu_torch.kernels.irls import (solve_irls_cuda,
+    from staticfusion_tpu_torch.kernels.irls import (OUT_ITERS,
+                                                     irls_solve_flat,
+                                                     solve_irls_cuda,
                                                      solve_irls_xla)
     worst = 0.0
-    for n in (76800, 1500):
+    for n in LEVEL_SIZES + (1500,):
         for kb in (1.05, 1.5):
             rng = np.random.default_rng(n)
             sys_g, b0_g, prior_g, reg_g, cfg = random_irls_system(rng, n,
@@ -256,17 +324,66 @@ def phase_k3():
                                        atol=1e-6, err_msg=tag + " est_cov")
             worst = max(worst, float(np.abs(g["twist"] - w["twist"]).max()),
                         float(np.abs(g["b_segm"] - w["b_segm"]).max()))
-    rng = np.random.default_rng(76800)
-    sys_g, b0_g, prior_g, reg_g, cfg = random_irls_system(rng, 76800, "cuda")
+    print(f"[K3 irls] ok: n {', '.join(map(str, LEVEL_SIZES))} and 1500, kb "
+          f"1.05 and 1.5: twist/b_segm rtol 2e-4, aver_res rtol 1e-4, "
+          f"est_cov rtol 2e-3 of the plain loop on the CPU", flush=True)
+
     kb = torch.tensor(1.5, device="cuda")
-    ms = cuda_ms(lambda: solve_irls_cuda(sys_g, b0_g, prior_g, reg_g, cfg,
-                                         kb=kb), 50)
-    plain_ms = cuda_ms(lambda: solve_irls_xla(sys_g, b0_g, prior_g, reg_g,
-                                              cfg, kb=kb), 10)
-    print(f"[K3 irls] ok: n 76800 and 1500, kb 1.05 and 1.5: twist/b_segm "
-          f"rtol 2e-4, est_cov rtol 2e-3 of the plain loop on the CPU; "
-          f"n=76800 {ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    by_n, systems = {}, {}
+    for n in LEVEL_SIZES:
+        args = systems[n] = random_irls_system(np.random.default_rng(n), n,
+                                               "cuda")
+        flat = irls_solve_flat(*args, kb=kb)
+        check(torch.equal(flat, irls_solve_flat(*args, kb=kb)),
+              f"K3 n={n}: two runs differ")
+        iters = int(flat[OUT_ITERS])
+        ms = cuda_ms(lambda: solve_irls_cuda(*args, kb=kb), 200)
+        plain_ms = cuda_ms(lambda: solve_irls_xla(*args, kb=kb), 10)
+        # Each input read once: A_c, A_d (12 floats), B_c, B_d, label per
+        # pixel; the per-cluster inputs and reg; the flat output.
+        nbytes = 4 * (15 * n + 4 * 24 + 24 * 24 + 2 + 69)
+        bound_ms, bound_by = bound(
+            nbytes, n * (K3_FLOP_PER_PIXEL_ONCE
+                         + iters * K3_FLOP_PER_PIXEL_ITER))
+        by_n[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "iterations": iters}
+        print(f"  n={n}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"{iters} iterations, bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
+    top = by_n[LEVEL_SIZES[0]]
+    return {"max_abs_err": worst, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "by_n": {str(n): v for n, v in by_n.items()}}, systems
+
+
+def phase_k3_profile(k3, systems):
+    """One solve_irls_cuda call is one device kernel: the profiler sees
+    every device operation the wrapper enqueues, and its duration is the
+    kernel's device time.  Runs after the main path: run before it, the
+    profiler coincided with slower frames (its hooks may outlive it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
+    kb = torch.tensor(1.5, device="cuda")
+    for n, args in systems.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve_irls_cuda(*args, kb=kb)
+            torch.cuda.synchronize()
+        dev_ops = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        names = sorted({e.name for e in dev_ops})
+        check(len(dev_ops) == 1 and "irls_solve_kernel" in names[0],
+              f"K3 n={n}: one call ran {len(dev_ops)} device operations "
+              f"{names}, expected the one kernel")
+        k3["by_n"][str(n)]["device_us"] = dev_ops[0].time_range.elapsed_us()
+    print("[K3 profile] ok: one solve_irls_cuda call = 1 device kernel "
+          "(irls_solve_kernel) at every n; device us: " + ", ".join(
+              f"n={n} {v['device_us']:.1f}" for n, v in k3["by_n"].items()),
+          flush=True)
 
 
 def _counters():
@@ -288,7 +405,8 @@ def phase_main(card):
     from staticfusion_tpu_torch.pipeline.system import SlamSystem
     cfg = SFConfig()
     frames, gt = synthetic.make_sequence(cfg, FRAMES, TWIST, seed=0)
-    slam = SlamSystem(cfg, device="cuda")
+    slam = SlamSystem(cfg)  # the card is the default device
+    check(slam.device.type == "cuda", f"main path: on {slam.device}")
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
@@ -320,8 +438,11 @@ def phase_main(card):
           f"main path: K1 launched {launches['bilateral_filter_mm']} times")
     check(launches["irls_solve"] >= FRAMES - 1,
           f"main path: K3 launched {launches['irls_solve']} times")
-    check(launches["spd_solve"] > 0 and launches["spd_inverse"] > 0,
-          f"main path: K2 launches {launches}")
+    check(launches["spd_solve"] > 0,
+          f"main path: K2 (motion filter) launches {launches}")
+    # The covariance inverse runs inside K3's launch.
+    check(launches["spd_inverse"] == 0,
+          f"main path: K2 inverse launched {launches['spd_inverse']} times")
     med = float(np.median(steady))
     print(f"[main] ok: {FRAMES} frames QVGA F=4 post 2: ATE {ate:.5f} m, "
           f"surfels {counts[0]}..{counts[-1]} (min {min(counts)}, max "
@@ -329,6 +450,9 @@ def phase_main(card):
           f"{med:.3f} ms/frame over frames 3..{FRAMES - 1} "
           f"(min {min(steady):.3f}, max {max(steady):.3f}) on {card}",
           flush=True)
+    print("  launches per frame: " + ", ".join(
+        f"{name} {v / FRAMES:.3f}" for name, v in launches.items()),
+        flush=True)
     print("  ms/frame: " + " ".join(f"{m:.1f}" for m in ms), flush=True)
     return launches, med
 
@@ -385,9 +509,10 @@ def main() -> int:
         phase_build()
         k1 = phase_k1()
         k2s, k2i = phase_k2()
-        k3 = phase_k3()
+        k3, k3_systems = phase_k3()
         launches, _ = phase_main(card)
         phase_cross()
+        phase_k3_profile(k3, k3_systems)
     except (SmokeError, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1

@@ -1,5 +1,5 @@
 // Warp-level Cholesky solve for one small SPD system (n <= 32), shared by
-// the standalone solve kernels (smallsolve.cu) and the IRLS chain (irls.cu).
+// the standalone solve kernels (smallsolve.cu) and the IRLS kernel (irls.cu).
 //
 // Replaces the value-level body `_chol_solve_body` of
 // staticfusion_tpu/kernels/smallsolve_pallas.py.  One warp holds the

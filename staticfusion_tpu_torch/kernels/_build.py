@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-`load()` compiles every `csrc/*.cu` of this checkout with nvcc into one
-shared library with a plain C interface, at first use, into
+`load()` compiles every `csrc/*.cu` of this checkout with nvcc (one
+process per source, in parallel) into one shared library with a plain C
+interface, at first use, into
 `build/torch_kernels/` at the repository root, and loads it with ctypes.
 The library's name carries a hash of the sources, so an edited source
 rebuilds and an unchanged one loads the existing file.  A failed build
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -28,8 +29,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sf_bilateral": [_P, _P, _I, _I, _F, _F, _P],
     "sf_spd_solve": [_P, _P, _P, _I, _I, _F, _I, _P],
-    "sf_irls_solve": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _F, _F, _F, _P],
+    "sf_irls_max_blocks": [_I],
+    "sf_irls_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                      _P, _P, _F, _P, _P, _I, _F, _F, _F, _P],
 }
 
 
@@ -59,19 +61,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsf_kernels_{source_hash()}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once and wait for every one; raise with the
+    output of those that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
+    per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
+    nvcc, tag = _nvcc(), f"{out.stem}.tmp{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
+    tmp = BUILD_DIR / f"{tag}.so"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(srcs, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

@@ -1,8 +1,10 @@
-"""K3 wrapper: the IRLS kernel chain (csrc/irls.cu).
+"""K3 wrapper: the coupled IRLS loop and its covariance inverse as one
+cooperative kernel launch per solve (csrc/irls.cu).
 
 Plain version: `solve_irls_xla` (solver/irls.py, re-exported here).
-`solve_irls_cuda.launches` counts solves (one chain of up to
-4 * max_iter_irls kernel launches each).
+`solve_irls_cuda.launches` counts solves; each solve is one launch.  The
+inputs are read where the solver left them: nothing is copied, cast or
+reduced on the host side of the launch.
 """
 
 from __future__ import annotations
@@ -11,67 +13,105 @@ import torch
 
 from staticfusion_tpu_torch.config import NUM_CLUSTERS, SFConfig
 from staticfusion_tpu_torch.kernels import _build
-from staticfusion_tpu_torch.kernels.smallsolve import spd_inverse_cuda
 from staticfusion_tpu_torch.solver.irls import (IRLSResult,  # noqa: F401
                                                 JacobianSystem,
-                                                initial_aver_res,
                                                 solve_irls_xla)
 from staticfusion_tpu_torch.solver.segmentation import SegPrior
 
-TILE = 2048  # pixels per pass block (256 threads x 8 pixels)
+TILE = 2048  # pixels per tile (256 threads x 8 pixels)
+# Per-tile partials: prologue (2), pass 0 (27), pass 1 (K + 1).
+_PARTIALS = 2 + 27 + NUM_CLUSTERS + 1
+# Flat output, the OUT_* offsets of csrc/irls.cu: twist 6, b_segm 24,
+# aver_res, res_sq, est_cov 36 (row-major), iterations run.
+OUT_TWIST, OUT_BSEGM, OUT_AVER, OUT_RESSQ, OUT_COV, OUT_ITERS = (
+    0, 6, 30, 31, 32, 68)
+OUT_SIZE = OUT_ITERS + 1
+
+_max_blocks: dict = {}  # device index -> co-resident block cap
+
+
+def launch_plan(n: int, max_blocks: int) -> tuple:
+    """(tiles, grid, scratch floats) of one solve over n pixels when at
+    most `max_blocks` blocks can be co-resident.  Each block walks tiles
+    b, b + grid, ..., and every partial belongs to a tile, so the sums do
+    not depend on the grid."""
+    if n < 1 or max_blocks < 1:
+        raise ValueError(f"launch_plan: n={n}, max_blocks={max_blocks}")
+    tiles = -(-n // TILE)
+    return tiles, min(tiles, max_blocks), tiles * _PARTIALS
+
+
+def _coresident_blocks(lib, dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _max_blocks:
+        got = lib.sf_irls_max_blocks(idx)
+        if got <= 0:
+            why = f"CUDA error {-got}" if got else "no cooperative launch"
+            raise RuntimeError(f"cuda:{idx} cannot run the cooperative IRLS "
+                               f"kernel ({why})")
+        _max_blocks[idx] = got
+    return _max_blocks[idx]
+
+
+def irls_solve_flat(sys: JacobianSystem, b_segm0: torch.Tensor,
+                    prior: SegPrior, reg_ata: torch.Tensor, config: SFConfig,
+                    kb=None) -> torch.Tensor:
+    """One launch; returns the flat (OUT_SIZE,) output.  `kb` may be a
+    float or a float32 device scalar."""
+    s = config.solver
+    k = NUM_CLUSTERS
+    n = sys.B_c.shape[0]
+    if n == 0:
+        raise ValueError("empty Jacobian system")
+    if s.max_iter_irls < 1:
+        raise ValueError("max_iter_irls must be >= 1")
+    f32 = torch.float32
+    dev = sys.B_c.device
+    inputs = ((sys.A_cT, "A_cT", f32, (6, n)), (sys.A_dT, "A_dT", f32, (6, n)),
+              (sys.B_c, "B_c", f32, (n,)), (sys.B_d, "B_d", f32, (n,)),
+              (sys.labels, "labels", torch.int32, (n,)),
+              (b_segm0, "b_segm0", f32, (k,)),
+              (prior.b_prior, "b_prior", f32, (k,)),
+              (prior.lambda_t_w, "lambda_t_w", f32, (k,)),
+              (sys.cluster_counts, "cluster_counts", f32, (k,)),
+              (sys.valid_count, "valid_count", f32, ()),
+              (reg_ata, "reg_ata", f32, (k, k)))
+    if isinstance(kb, torch.Tensor):
+        inputs += ((kb, "kb", f32, ()),)
+        kb_ptr, kb_val = kb.data_ptr(), 0.0
+    else:
+        kb_ptr, kb_val = None, float(s.kb if kb is None else kb)
+    for t, name, dtype, shape in inputs:
+        _build.require(t, name, dtype, shape)
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    lib = _build.load()
+    tiles, grid, scratch_n = launch_plan(n, _coresident_blocks(lib, dev))
+    scratch = torch.empty(scratch_n, dtype=f32, device=dev)
+    out = torch.empty(OUT_SIZE, dtype=f32, device=dev)
+    solve_irls_cuda.launches += 1
+    _build.check(lib.sf_irls_solve(
+        sys.A_cT.data_ptr(), sys.A_dT.data_ptr(), sys.B_c.data_ptr(),
+        sys.B_d.data_ptr(), sys.labels.data_ptr(), n, TILE, grid,
+        b_segm0.data_ptr(), prior.b_prior.data_ptr(),
+        prior.lambda_t_w.data_ptr(), sys.cluster_counts.data_ptr(),
+        sys.valid_count.data_ptr(), reg_ata.data_ptr(), kb_ptr, kb_val,
+        scratch.data_ptr(), out.data_ptr(), s.max_iter_irls, s.kc_cauchy,
+        s.lambda_prior, s.irls_delta_threshold, _build.stream_ptr(out)),
+        "sf_irls_solve")
+    return out
 
 
 def solve_irls_cuda(sys: JacobianSystem, b_segm0: torch.Tensor,
                     prior: SegPrior, reg_ata: torch.Tensor, config: SFConfig,
                     kb=None) -> IRLSResult:
     """The coupled IRLS loop on the card; same results as solve_irls_xla up
-    to float summation order.  `kb` may be a float or a device scalar."""
-    s = config.solver
-    k = NUM_CLUSTERS
-    dev = sys.B_c.device
-    n = sys.B_c.shape[0]
-    if n == 0:
-        raise ValueError("empty Jacobian system")
-    at = torch.cat([sys.A_cT, sys.A_dT]).to(torch.float32).contiguous()
-    b2 = torch.stack([sys.B_c, sys.B_d]).to(torch.float32).contiguous()
-    lbl = sys.labels.to(torch.int32).contiguous()
-    prior2 = torch.stack([prior.b_prior, prior.lambda_t_w]).to(
-        torch.float32).contiguous()
-    counts = sys.cluster_counts.to(torch.float32).contiguous()
-    reg = reg_ata.to(torch.float32).contiguous()
-    for t, name, shape in ((at, "A", (12, n)), (b2, "B", (2, n)),
-                           (lbl, "labels", (n,)), (prior2, "prior", (2, k)),
-                           (counts, "cluster_counts", (k,)),
-                           (reg, "reg_ata", (k, k))):
-        _build.require(t, name, torch.int32 if name == "labels"
-                       else torch.float32, shape)
-
-    n2, aver0 = initial_aver_res(sys)
-    kb_t = torch.as_tensor(s.kb if kb is None else kb, dtype=torch.float32,
-                           device=dev).reshape(1)
-    one = torch.ones(1, device=dev)
-    # State layout: ST_* in csrc/irls.cu (twist, b_ext, aver_res, pending,
-    # done, kb, n2).
-    st = torch.cat([torch.zeros(6, device=dev),
-                    b_segm0.to(torch.float32).reshape(k), one,
-                    aver0.reshape(1), torch.zeros(2, device=dev), kb_t,
-                    n2.reshape(1)]).contiguous()
-    tiles = -(-n // TILE)
-    part0 = torch.empty(tiles * 27, device=dev)
-    part1 = torch.empty(tiles * (k + 1), device=dev)
-    out = torch.empty(32, device=dev)
-    out_ata = torch.empty(36, device=dev)
-    lib = _build.load()
-    solve_irls_cuda.launches += 1
-    _build.check(lib.sf_irls_solve(
-        at.data_ptr(), b2.data_ptr(), lbl.data_ptr(), n, TILE, st.data_ptr(),
-        prior2.data_ptr(), counts.data_ptr(), reg.data_ptr(),
-        part0.data_ptr(), part1.data_ptr(), out.data_ptr(),
-        out_ata.data_ptr(), s.max_iter_irls, s.kc_cauchy, s.lambda_prior,
-        s.irls_delta_threshold, _build.stream_ptr(at)), "sf_irls_solve")
-    est_cov = spd_inverse_cuda(out_ata.reshape(6, 6), ridge=1e-12) * out[31]
-    return IRLSResult(twist=out[0:6], est_cov=est_cov, b_segm=out[6:30],
-                      aver_res=out[30])
+    to float summation order.  The fields are views of one flat output."""
+    out = irls_solve_flat(sys, b_segm0, prior, reg_ata, config, kb=kb)
+    return IRLSResult(twist=out[OUT_TWIST:OUT_TWIST + 6],
+                      est_cov=out[OUT_COV:OUT_COV + 36].view(6, 6),
+                      b_segm=out[OUT_BSEGM:OUT_BSEGM + NUM_CLUSTERS],
+                      aver_res=out[OUT_AVER])
 
 
 solve_irls_cuda.launches = 0

@@ -67,10 +67,22 @@ def init_state(config: SFConfig, device=None) -> SlamState:
 _NESTED = {"smap": SurfelMap, "rings": RingBuffers, "pred": PredictedView}
 
 
-def state_from_numpy(tree, device=None) -> SlamState:
+def entry_device(device) -> torch.device:
+    """The device of an entry point: the card unless the caller asks for
+    the CPU.  Raises when the card is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
+def state_from_numpy(tree, device="cuda") -> SlamState:
     """SlamState from any tree with the same field names whose leaves are
     numpy arrays (e.g. a JAX SlamState mapped through np.asarray).  Float
     leaves become float32, integer leaves int32, bool stays bool."""
+    device = entry_device(device)
+
     def leaf(a):
         a = np.asarray(a)
         if a.dtype == np.bool_:

@@ -20,6 +20,7 @@ from staticfusion_tpu_torch.fusion.backend import check_supported
 from staticfusion_tpu_torch.fusion.surfels import (SurfelMap, compact_map,
                                                    concat_maps, next_tier)
 from staticfusion_tpu_torch.io import trajectory as traj_io
+from staticfusion_tpu_torch.pipeline.state import entry_device
 from staticfusion_tpu_torch.pipeline.step import (Frame, StepOutputs,
                                                   bootstrap_step, slam_step)
 
@@ -27,16 +28,16 @@ from staticfusion_tpu_torch.pipeline.step import (Frame, StepOutputs,
 class SlamSystem:
     """Feed frames with `process(rgb, depth_mm, timestamp)`; read
     `poses`/`times` or call `ate()` against ground truth.  All tensors live
-    on `device`."""
+    on `device`: the card unless the caller asks for the CPU."""
 
-    def __init__(self, config: SFConfig, device="cpu",
+    def __init__(self, config: SFConfig, device="cuda",
                  initial_pose: Optional[np.ndarray] = None,
                  resize_check_interval: int = 8):
         check_supported(config)
         if config.loop.enabled:
             raise NotImplementedError("loop closure is not ported")
         self.config = config
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.state = None
         self._pending = None  # first frame, buffered until bootstrap
         self.initial_pose = (np.eye(4, dtype=np.float32)

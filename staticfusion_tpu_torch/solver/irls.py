@@ -3,7 +3,7 @@ staticfusion_tpu/solver/irls.py; reference FrontEnd.cpp:513-772).
 
 `solve_irls_xla` is the plain version of the coupled loop (the JAX
 package's XLA formulation, same name so the two line up); `solve_irls`
-dispatches on the device: the CUDA kernel chain (kernels/irls.py,
+dispatches on the device: the one-launch CUDA kernel (kernels/irls.py,
 csrc/irls.cu) for CUDA tensors, the plain loop for CPU tensors.
 """
 

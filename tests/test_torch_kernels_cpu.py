@@ -232,14 +232,61 @@ def test_irls_plain_device_scalar_kb():
                                    atol=2e-5)
 
 
+@pytest.mark.parametrize("n,tiles", [(300, 1), (1200, 1), (4800, 3),
+                                     (19200, 10), (76800, 38),
+                                     (307200, 150)])
+def test_irls_launch_plan(n, tiles):
+    """K3's launch plan at the five QVGA level sizes and VGA level 0: one
+    tile per 2048 pixels, the grid capped at the co-resident blocks, and
+    scratch for every tile's partials (2 + 27 + 25 floats)."""
+    from staticfusion_tpu_torch.kernels.irls import launch_plan
+
+    assert launch_plan(n, 264) == (tiles, tiles, tiles * 54)
+    assert launch_plan(n, 16) == (tiles, min(tiles, 16), tiles * 54)
+    with pytest.raises(ValueError):
+        launch_plan(n, 0)
+
+
+def test_kernel_interfaces_match_the_sources():
+    """What cannot be compiled here is read: every extern "C" function of
+    csrc/*.cu has the ctypes signature the loader declares (pointers and
+    streams as c_void_p), and K3's output offsets in the wrapper are the
+    kernel's."""
+    import ctypes
+    import re
+
+    from staticfusion_tpu_torch.kernels import _build
+    from staticfusion_tpu_torch.kernels import irls as k3
+
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for name, params in re.findall(r"^int (sf_\w+)\(([^)]*)\)", text,
+                                       re.M):
+            found[name] = [ctypes.c_void_p if "*" in p or "Stream" in p
+                           else kinds[p.split()[0]]
+                           for p in params.split(",")]
+        if src.name == "irls.cu":
+            offsets = dict(re.findall(r"constexpr int (OUT_\w+) = (\d+);",
+                                      text))
+    assert found == _build._SIGNATURES
+    assert {k: int(v) for k, v in offsets.items()} == {
+        k: getattr(k3, k) for k in offsets}
+    assert k3.OUT_SIZE == k3.OUT_COV + 36 + 1 == k3.OUT_ITERS + 1
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """Dispatch: CPU tensors never reach the CUDA wrappers (whose launch
     counters stay untouched)."""
     from staticfusion_tpu_torch.kernels.bilateral import \
         bilateral_filter_mm_cuda
+    from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
     from staticfusion_tpu_torch.kernels.smallsolve import spd_solve_cuda
+    from staticfusion_tpu_torch.solver.irls import solve_irls, solve_irls_xla
 
-    before = (bilateral_filter_mm_cuda.launches, spd_solve_cuda.launches)
+    counters = (bilateral_filter_mm_cuda, spd_solve_cuda, solve_irls_cuda)
+    before = [fn.launches for fn in counters]
     d = torch.as_tensor(_depth_image(np.random.default_rng(5), 16, 24))
     assert torch.equal(pt_bilateral.bilateral_filter_mm(d, 4.5),
                        pt_bilateral.bilateral_filter_mm_plain(d, 4.5))
@@ -247,8 +294,13 @@ def test_cpu_tensors_take_the_plain_versions():
     b = torch.ones(6)
     assert torch.equal(pt_smallsolve.spd_solve_fast(M, b),
                        pt_smallsolve.spd_solve(M, b))
-    assert (bilateral_filter_mm_cuda.launches,
-            spd_solve_cuda.launches) == before
+    sys, prior, reg, cfg = _torch_system(
+        _random_system(np.random.default_rng(5), 300))
+    b0 = torch.full((24,), 0.5)
+    for got, want in zip(solve_irls(sys, b0, prior, reg, cfg),
+                         solve_irls_xla(sys, b0, prior, reg, cfg)):
+        assert torch.equal(got, want)
+    assert [fn.launches for fn in counters] == before
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -256,6 +308,7 @@ def test_cuda_wrappers_reject_cpu_tensors():
     any build or launch."""
     from staticfusion_tpu_torch.kernels.bilateral import \
         bilateral_filter_mm_cuda
+    from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
     from staticfusion_tpu_torch.kernels.smallsolve import (spd_inverse_cuda,
                                                            spd_solve_cuda)
     with pytest.raises(ValueError, match="CUDA"):
@@ -264,6 +317,12 @@ def test_cuda_wrappers_reject_cpu_tensors():
         spd_solve_cuda(torch.eye(6), torch.ones(6))
     with pytest.raises(ValueError, match="CUDA"):
         spd_inverse_cuda(torch.eye(6))
+    sys, prior, reg, cfg = _torch_system(
+        _random_system(np.random.default_rng(3), 300))
+    for kb in (None, 1.5, torch.tensor(1.5)):
+        with pytest.raises(ValueError, match="CUDA"):
+            solve_irls_cuda(sys, torch.full((24,), 0.5), prior, reg, cfg,
+                            kb=kb)
 
 
 def test_other_devices_are_refused():

@@ -1,6 +1,6 @@
 """Packaging of the PyTorch port: it imports without JAX or the JAX
-package, and its numpy copies (config, synthetic data) agree with the
-originals."""
+package, its numpy copies (config, synthetic data) agree with the
+originals, and its entry points default to the card."""
 
 import dataclasses
 import pathlib
@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "staticfusion_tpu_torch"
@@ -87,3 +88,80 @@ def test_synthetic_sequence_identical():
         for a, b in zip(fa, fb):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("entry", ["SlamSystem", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; without a card the default raises and names the fix."""
+    import torch
+
+    from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
+                                               SFConfig)
+    from staticfusion_tpu_torch.pipeline.state import (init_state,
+                                                       state_from_numpy,
+                                                       state_to_numpy)
+    from staticfusion_tpu_torch.pipeline.system import SlamSystem
+
+    cfg = SFConfig(camera=CameraConfig(width=40, height=30),
+                   fusion=FusionConfig(capacity=1 << 10))
+    if entry == "SlamSystem":
+        def device_of(**kw):
+            return SlamSystem(cfg, **kw).device
+    else:
+        tree = state_to_numpy(init_state(cfg, "cpu"))
+
+        def device_of(**kw):
+            return state_from_numpy(tree, **kw).curr_pose.device
+    if torch.cuda.is_available():
+        assert device_of().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            device_of()
+    assert device_of(device="cpu").type == "cpu"
+
+
+_STUB_NVCC = """#!/bin/sh
+# Records its call; a compile (-c) waits until every compile has started.
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+case " $* " in
+  *" -c "*)
+    echo "compile $out" >> {log}
+    i=0
+    while [ "$(grep -c compile {log})" -lt {n} ] && [ $i -lt 400 ]; do
+      sleep 0.05; i=$((i + 1))
+    done
+    [ "$(grep -c compile {log})" -ge {n} ] || exit 3 ;;
+  *) echo "link $*" >> {log} ;;
+esac
+touch "$out"
+"""
+
+
+def test_kernel_build_starts_one_compiler_per_source(tmp_path, monkeypatch):
+    """The build runs one nvcc per csrc/*.cu, all at once (a stub compiler
+    stands in for nvcc: each compile waits for the others to start, so a
+    build that ran them one by one would fail), links the objects into
+    the library named by the sources' hash, and leaves no object behind."""
+    from staticfusion_tpu_torch.kernels import _build
+
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    log = tmp_path / "calls.log"
+    stub = tmp_path / "cuda" / "bin" / "nvcc"
+    stub.parent.mkdir(parents=True)
+    stub.write_text(_STUB_NVCC.format(log=log, n=len(srcs)))
+    stub.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+    lib = _build.build()
+    assert lib == _build.library_path() and lib.exists()
+    calls = log.read_text().splitlines()
+    compiles = sorted(c.split()[1] for c in calls if c.startswith("compile"))
+    assert [pathlib.Path(c).suffixes[-2:] for c in compiles] == [
+        ["." + p.stem, ".o"] for p in srcs]
+    links = [c for c in calls if c.startswith("link")]
+    assert len(links) == 1 and "-shared" in links[0].split()
+    assert sorted(w for w in links[0].split() if w.endswith(".o")) == compiles
+    assert sorted(p.name for p in lib.parent.iterdir()) == [lib.name]

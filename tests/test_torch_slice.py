@@ -44,7 +44,7 @@ FREE_POSE_TOL = 2e-2
 @pytest.fixture(scope="module")
 def runs():
     frames, gt = synthetic.make_sequence(CONFIG, N, TWIST)
-    js, ts = JaxSlam(CONFIG), TorchSlam(TCONFIG)
+    js, ts = JaxSlam(CONFIG), TorchSlam(TCONFIG, device="cpu")
     jout, tout, jstates = [], [], []
     for i, (rgb, d, _) in enumerate(frames):
         jout.append(js.process(rgb, d, i / 30.0))
@@ -70,7 +70,7 @@ def test_bootstrap_matches(runs):
 def test_stepped_from_jax_state(runs, k):
     """Frame k from the JAX state after frame k-1 (state_from_numpy)."""
     frames, _, _, _, jout, _, jstates = runs
-    state = state_from_numpy(jstates[k - 1])
+    state = state_from_numpy(jstates[k - 1], device="cpu")
     rgb, d, _ = frames[k]
     _, out = tstep.slam_step(state, tstep.Frame(torch.as_tensor(rgb),
                                                 torch.as_tensor(d)), TCONFIG)
@@ -100,7 +100,7 @@ def test_free_running_systems_agree(runs):
 def test_state_numpy_round_trip(runs):
     """JAX state -> port state -> numpy keeps every leaf bit-exactly."""
     jstate = runs[6][3]
-    back = state_to_numpy(state_from_numpy(jstate))
+    back = state_to_numpy(state_from_numpy(jstate, device="cpu"))
     for got, want in zip(jax.tree_util.tree_leaves(tuple(back)),
                          jax.tree_util.tree_leaves(jstate)):
         np.testing.assert_array_equal(got, np.asarray(want))
@@ -133,9 +133,9 @@ def test_tiering_and_archive_match_jax(runs, stale_every):
         last = state.smap.last_time.copy()
         last[::stale_every] = -1000.0
         state = state._replace(smap=state.smap._replace(last_time=last))
-    js, ps = JaxSlam(CONFIG), TorchSlam(TCONFIG)
+    js, ps = JaxSlam(CONFIG), TorchSlam(TCONFIG, device="cpu")
     js.state = _to_jax_tree(JaxState, state)
-    ps.state = state_from_numpy(state)
+    ps.state = state_from_numpy(state, device="cpu")
     for s in (js, ps):
         s.archive_min_batch = 512
         s._frames_since_resize_check = s.resize_check_interval - 1
@@ -167,7 +167,7 @@ def test_capacity_wall_and_watermark():
     sphere = synthetic.Sphere(center=np.array([0.3, 0.0, 1.8]), radius=0.35,
                               velocity=np.array([-0.05, 0.0, 0.0]))
     frames, _ = synthetic.make_sequence(cfg, 8, TWIST * 3.0, sphere=sphere)
-    slam = TorchSlam(cfg, resize_check_interval=2)
+    slam = TorchSlam(cfg, device="cpu", resize_check_interval=2)
     useds, counts = [], []
     for i, (rgb, d, _) in enumerate(frames):
         out = slam.process(rgb, d, i / 30.0)
@@ -188,7 +188,7 @@ def test_dynamic_object_segmented():
     sphere = synthetic.Sphere(center=np.array([0.3, 0.0, 1.8]), radius=0.35,
                               velocity=np.array([-0.04, 0.0, 0.0]))
     frames, gt = synthetic.make_sequence(CONFIG, 6, TWIST, sphere=sphere)
-    slam = TorchSlam(TCONFIG)
+    slam = TorchSlam(TCONFIG, device="cpu")
     gaps = []
     for i, (rgb, d, dyn) in enumerate(frames):
         out = slam.process(rgb, d, i / 30.0)
