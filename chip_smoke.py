@@ -13,17 +13,23 @@ Phases (each prints one line; any failure exits non-zero):
      same inputs (plain version run on the CPU), with the stated
      tolerances; times of kernel and plain version on the card (CUDA
      events) at the main path's shapes, beside the kernel's bound (the
-     larger of its bytes over HBM bandwidth and its flop over the float32
-     peak) and, for K2, beside torch.linalg's call.  K3 at all five QVGA
-     level sizes;
+     largest of its bytes over HBM bandwidth, its flop over the float32
+     peak and, for K1, its expf over the special-function units' rate)
+     and, for K2, beside torch.linalg's call.  K1 (the depth
+     preprocessing) at QVGA and VGA; K3 with the motion filter at all
+     five QVGA level sizes;
   4. main path: SlamSystem(SFConfig()) on the card over a 30-frame
      synthetic static QVGA sequence (seed 0): ATE, finiteness, surfel
-     counts, per-kernel launch counts of that run, median ms/frame;
+     counts, per-kernel launch counts of that run (the standalone K2
+     solve must not run: the motion filter runs inside K3), median
+     ms/frame;
   5. card vs CPU: the first 6 frames through the port on the card and on
      the CPU, poses and surfel counts compared;
-  6. K3 profile: torch.profiler counts the device kernels of one K3 call
-     at each level size (exactly one).  Last, because a profiler run
-     before the main path coincided with slower frames;
+  6. profile: torch.profiler counts the device kernels of one K3 call
+     at each level size and of one K1 call (exactly one each) and their
+     device times, and the device kernels and busy time per main-path
+     frame over 3 more frames.  Last, because a profiler run before the
+     main path coincided with slower frames;
 then a JSON line with the kernels, and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -39,6 +45,7 @@ import time
 import numpy as np
 
 FRAMES = 30
+PROFILE_FRAMES = 3      # more frames of the same sequence, profiled last
 TWIST = np.array([0.004, -0.002, 0.006, 0.0015, -0.001, 0.002], np.float32)
 ATE_LIMIT = 0.02        # metres; the healthy signal of the static sequence
 CROSS_FRAMES = 6
@@ -50,10 +57,15 @@ COUNT_TOL = 0.01
 # HBM bandwidth and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Special-function units (MUFU: exp2, rcp, ...): 16 results per clock per
+# SM (CUDA C++ Programming Guide, throughput table, compute capability
+# 9.0) x 132 SMs x the 1.98 GHz boost clock of the data sheet's peaks.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # QVGA pyramid level sizes, level 0 first (K3's N per solve).
 LEVEL_SIZES = (76800, 19200, 4800, 1200, 300)
 # Flop per in-image bilateral tap: diff, square, the exponent's FMA, expf
-# counted as one, the two weighted sums (an FMA is 2).
+# counted as one, the two weighted sums (an FMA is 2); each tap's expf is
+# also one special-function op.
 K1_FLOP_PER_TAP = 8
 # K3 flop per pixel: per iteration pass 0 (residuals 24 + 4, weights 10,
 # weighted rows 14, normal equations 108) and pass 1 (residuals 26,
@@ -87,12 +99,12 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, flop):
+def bound(nbytes, flop, sfu_ops=0):
     """(bound_ms, bound_by): the least time of the work on the card."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flop = flop / FP32_FLOP_PER_S * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_flop
-            else (t_flop, "operations"))
+    t_ops = max(flop / FP32_FLOP_PER_S, sfu_ops / SFU_OPS_PER_S) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
 
 
 def bilateral_taps(rows, cols, r=6):
@@ -175,34 +187,55 @@ def phase_build():
           f"{os.path.relpath(lib._name)}", flush=True)
 
 
-def phase_k1(rows_list=((240, 320), (480, 640))):
+def phase_k1(shapes=((240, 320), (480, 640))):
+    """K1, the depth preprocessing kernel: raw_m exactly and filt_m within
+    the bilateral gate (<= 1 mm, < 1e-3 of pixels differ, out-of-range
+    centres 0; read back in millimetres) of the plain version on the CPU,
+    and the filtered millimetres of the same kernel within that gate."""
     import torch
 
     from staticfusion_tpu_torch.kernels.bilateral import (
-        bilateral_filter_mm_cuda, bilateral_filter_mm_plain)
+        bilateral_filter_mm_cuda, bilateral_filter_mm_plain,
+        preprocess_depth_cuda, preprocess_depth_mm_plain)
     worst = 0.0
-    for rows, cols in rows_list:
+    for rows, cols in shapes:
         d = depth_image(np.random.default_rng(rows * 1000 + cols), rows,
                         cols)
-        got = bilateral_filter_mm_cuda(torch.as_tensor(d, device="cuda"),
-                                       4.5).cpu().numpy()
-        want = bilateral_filter_mm_plain(torch.as_tensor(d), 4.5).numpy()
-        err = float(np.abs(got - want).max())
-        frac = float(np.mean(got != want))
-        check(err <= 1.0, f"K1 {rows}x{cols}: max |diff| {err} mm > 1")
-        check(frac < 1e-3, f"K1 {rows}x{cols}: {frac} of pixels differ")
-        check(np.all(got[(d < 300.0) | (d > 4500.0)] == 0.0),
-              f"K1 {rows}x{cols}: out-of-range centre not zero")
-        worst = max(worst, err)
+        dg = torch.as_tensor(d, device="cuda")
+        raw_m, filt_m = (t.cpu() for t in preprocess_depth_cuda(dg, 4.5))
+        raw_p, filt_p = preprocess_depth_mm_plain(torch.as_tensor(d), 4.5)
+        tag = f"K1 {rows}x{cols}"
+        check(torch.equal(raw_m, raw_p), f"{tag}: raw_m not bit-identical")
+        filt_mm = bilateral_filter_mm_cuda(dg, 4.5).cpu().numpy()
+        want_mm = bilateral_filter_mm_plain(torch.as_tensor(d), 4.5).numpy()
+        stats = []
+        for what, got, want in (
+                ("filt_m", np.rint(filt_m.numpy() * 1000.0),
+                 np.rint(filt_p.numpy() * 1000.0)),
+                ("filtered mm", filt_mm, want_mm)):
+            err = float(np.abs(got - want).max())
+            frac = float(np.mean(got != want))
+            check(err <= 1.0, f"{tag} {what}: max |diff| {err} mm > 1")
+            check(frac < 1e-3, f"{tag} {what}: {frac} of pixels differ")
+            check(np.all(got[(d < 300.0) | (d > 4500.0)] == 0.0),
+                  f"{tag} {what}: out-of-range centre not zero")
+            stats.append(f"{what} max |diff| {err:.0f} mm, {frac:.2e} of "
+                         f"pixels differ")
+        worst = max(worst, float((filt_m - filt_p).abs().max()))
+        print(f"  {rows}x{cols}: raw_m bit-identical; " + "; ".join(stats),
+              flush=True)
     d = torch.as_tensor(depth_image(np.random.default_rng(1), 240, 320),
                         device="cuda")
-    ms = cuda_ms(lambda: bilateral_filter_mm_cuda(d, 4.5), 200)
-    plain_ms = cuda_ms(lambda: bilateral_filter_mm_plain(d, 4.5), 10)
-    bound_ms, bound_by = bound(2 * d.numel() * 4,
-                               K1_FLOP_PER_TAP * bilateral_taps(240, 320))
-    print(f"[K1 bilateral] ok: 240x320 and 480x640 within 1 mm, <1e-3 "
-          f"pixels differ; 240x320 {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    ms = cuda_ms(lambda: preprocess_depth_cuda(d, 4.5), 200)
+    plain_ms = cuda_ms(lambda: preprocess_depth_mm_plain(d, 4.5), 10)
+    taps = bilateral_taps(240, 320)
+    # Reads the image once, writes raw_m and filt_m.
+    bound_ms, bound_by = bound(3 * d.numel() * 4, K1_FLOP_PER_TAP * taps,
+                               sfu_ops=taps)
+    print(f"[K1 preprocess] ok: 240x320 and 480x640: raw_m bit-identical, "
+          f"filt_m within 1 mm and <1e-3 pixels differ; 240x320 {ms:.4f} "
+          f"ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by})", flush=True)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
@@ -291,12 +324,30 @@ def phase_k2():
              "bound_by": t["inv_bound"][1], "library_ms": t["inv_lib"]})
 
 
-def phase_k3():
+def random_filter_inputs(rng):
+    """(twist_old, accumulated twist) on the CPU: the previous frame's
+    twist and the log of a level's accumulated transform."""
     import torch
 
-    from staticfusion_tpu_torch.kernels.irls import (OUT_ITERS,
+    from staticfusion_tpu_torch.geometry import se3
+    twist_old = torch.as_tensor(rng.normal(0.0, 0.01, 6).astype(np.float32))
+    T = se3.se3_exp(torch.as_tensor(
+        rng.normal(0.0, 0.01, 6).astype(np.float32)))
+    return twist_old, se3.se3_log(T)
+
+
+def phase_k3():
+    """K3 with and without the motion filter in its epilogue against the
+    plain loop (and motion_filter) on the CPU; times of the main path's
+    call (filter on) at each level size."""
+    import torch
+
+    from staticfusion_tpu_torch.kernels.irls import (OUT_FILT, OUT_ITERS,
+                                                     OUT_TWIST,
                                                      irls_solve_flat,
+                                                     motion_filter,
                                                      solve_irls_cuda,
+                                                     solve_irls_filtered_cuda,
                                                      solve_irls_xla)
     worst = 0.0
     for n in LEVEL_SIZES + (1500,):
@@ -324,32 +375,77 @@ def phase_k3():
                                        atol=1e-6, err_msg=tag + " est_cov")
             worst = max(worst, float(np.abs(g["twist"] - w["twist"]).max()),
                         float(np.abs(g["b_segm"] - w["b_segm"]).max()))
+    # The motion filter inside the launch: the cf/df of levels 0 and 4 at
+    # every level size, against solve_irls_xla + motion_filter on the CPU.
+    for n in LEVEL_SIZES:
+        for level in (0, 4):
+            rng = np.random.default_rng(n)
+            sys_g, b0_g, prior_g, reg_g, cfg = random_irls_system(rng, n,
+                                                                  "cuda")
+            rng = np.random.default_rng(n)
+            sys_c, b0_c, prior_c, reg_c, _ = random_irls_system(rng, n,
+                                                                "cpu")
+            old, acc = random_filter_inputs(np.random.default_rng(n + level))
+            kb = torch.tensor(1.5, device="cuda")
+            got, twist = solve_irls_filtered_cuda(
+                sys_g, b0_g, prior_g, reg_g, cfg, old.cuda(), acc.cuda(),
+                level, kb=kb)
+            want = solve_irls_xla(sys_c, b0_c, prior_c, reg_c, cfg,
+                                  kb=torch.tensor(1.5))
+            want_twist = motion_filter(want.twist, want.est_cov, old, acc,
+                                       level, cfg)
+            tag = f"K3 + motion filter n={n} level={level}"
+            np.testing.assert_allclose(twist.cpu().numpy(),
+                                       want_twist.numpy(), rtol=2e-4,
+                                       atol=2e-6, err_msg=tag)
+            # The filter leaves the loop's outputs as they were.
+            plain_launch = solve_irls_cuda(sys_g, b0_g, prior_g, reg_g, cfg,
+                                           kb=kb)
+            for f in got._fields:
+                check(torch.equal(getattr(got, f),
+                                  getattr(plain_launch, f)),
+                      f"{tag}: {f} differs from the unfiltered launch")
+            worst = max(worst, float((twist.cpu() - want_twist).abs().max()))
     print(f"[K3 irls] ok: n {', '.join(map(str, LEVEL_SIZES))} and 1500, kb "
           f"1.05 and 1.5: twist/b_segm rtol 2e-4, aver_res rtol 1e-4, "
-          f"est_cov rtol 2e-3 of the plain loop on the CPU", flush=True)
+          f"est_cov rtol 2e-3 of the plain loop on the CPU; motion filter "
+          f"of levels 0 and 4 in the launch: rtol 2e-4 of solve_irls_xla + "
+          f"motion_filter", flush=True)
 
     kb = torch.tensor(1.5, device="cuda")
     by_n, systems = {}, {}
     for n in LEVEL_SIZES:
-        args = systems[n] = random_irls_system(np.random.default_rng(n), n,
-                                               "cuda")
+        args = random_irls_system(np.random.default_rng(n), n, "cuda")
+        old, acc = (t.cuda() for t in random_filter_inputs(
+            np.random.default_rng(n)))
+        systems[n] = (args, old, acc)
         flat = irls_solve_flat(*args, kb=kb)
         check(torch.equal(flat, irls_solve_flat(*args, kb=kb)),
               f"K3 n={n}: two runs differ")
+        check(torch.equal(flat[OUT_FILT:OUT_FILT + 6],
+                          flat[OUT_TWIST:OUT_TWIST + 6]),
+              f"K3 n={n}: filter off, yet the filtered twist differs")
         iters = int(flat[OUT_ITERS])
-        ms = cuda_ms(lambda: solve_irls_cuda(*args, kb=kb), 200)
-        plain_ms = cuda_ms(lambda: solve_irls_xla(*args, kb=kb), 10)
+        ms_unfiltered = cuda_ms(lambda: solve_irls_cuda(*args, kb=kb), 200)
+        ms = cuda_ms(lambda: solve_irls_filtered_cuda(*args, old, acc, 0,
+                                                      kb=kb), 200)
+        def plain():
+            r = solve_irls_xla(*args, kb=kb)
+            return motion_filter(r.twist, r.est_cov, old, acc, 0, args[-1])
+        plain_ms = cuda_ms(plain, 10)
         # Each input read once: A_c, A_d (12 floats), B_c, B_d, label per
-        # pixel; the per-cluster inputs and reg; the flat output.
-        nbytes = 4 * (15 * n + 4 * 24 + 24 * 24 + 2 + 69)
+        # pixel; the per-cluster inputs and reg; the two filter inputs;
+        # the flat output.
+        nbytes = 4 * (15 * n + 4 * 24 + 24 * 24 + 2 + 12 + 75)
         bound_ms, bound_by = bound(
             nbytes, n * (K3_FLOP_PER_PIXEL_ONCE
                          + iters * K3_FLOP_PER_PIXEL_ITER))
-        by_n[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        by_n[n] = {"ms": ms, "ms_without_filter": ms_unfiltered,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "iterations": iters}
-        print(f"  n={n}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-              f"{iters} iterations, bound {bound_ms:.6f} ms ({bound_by})",
-              flush=True)
+        print(f"  n={n}: {ms:.4f} ms with the filter ({ms_unfiltered:.4f} "
+              f"without) vs plain {plain_ms:.4f} ms, {iters} iterations, "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
     top = by_n[LEVEL_SIZES[0]]
     return {"max_abs_err": worst, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
@@ -357,42 +453,14 @@ def phase_k3():
             "by_n": {str(n): v for n, v in by_n.items()}}, systems
 
 
-def phase_k3_profile(k3, systems):
-    """One solve_irls_cuda call is one device kernel: the profiler sees
-    every device operation the wrapper enqueues, and its duration is the
-    kernel's device time.  Runs after the main path: run before it, the
-    profiler coincided with slower frames (its hooks may outlive it)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
-    kb = torch.tensor(1.5, device="cuda")
-    for n, args in systems.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            solve_irls_cuda(*args, kb=kb)
-            torch.cuda.synchronize()
-        dev_ops = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        names = sorted({e.name for e in dev_ops})
-        check(len(dev_ops) == 1 and "irls_solve_kernel" in names[0],
-              f"K3 n={n}: one call ran {len(dev_ops)} device operations "
-              f"{names}, expected the one kernel")
-        k3["by_n"][str(n)]["device_us"] = dev_ops[0].time_range.elapsed_us()
-    print("[K3 profile] ok: one solve_irls_cuda call = 1 device kernel "
-          "(irls_solve_kernel) at every n; device us: " + ", ".join(
-              f"n={n} {v['device_us']:.1f}" for n, v in k3["by_n"].items()),
-          flush=True)
-
-
 def _counters():
-    from staticfusion_tpu_torch.kernels.bilateral import \
-        bilateral_filter_mm_cuda
+    from staticfusion_tpu_torch.kernels.bilateral import (
+        bilateral_filter_mm_cuda, preprocess_depth_cuda)
     from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
     from staticfusion_tpu_torch.kernels.smallsolve import (spd_inverse_cuda,
                                                            spd_solve_cuda)
-    return {"bilateral_filter_mm": bilateral_filter_mm_cuda,
+    return {"preprocess_depth": preprocess_depth_cuda,
+            "bilateral_filter_mm": bilateral_filter_mm_cuda,
             "spd_solve": spd_solve_cuda, "spd_inverse": spd_inverse_cuda,
             "irls_solve": solve_irls_cuda}
 
@@ -404,7 +472,8 @@ def phase_main(card):
     from staticfusion_tpu_torch.io import synthetic
     from staticfusion_tpu_torch.pipeline.system import SlamSystem
     cfg = SFConfig()
-    frames, gt = synthetic.make_sequence(cfg, FRAMES, TWIST, seed=0)
+    frames, gt = synthetic.make_sequence(cfg, FRAMES + PROFILE_FRAMES, TWIST,
+                                         seed=0)
     slam = SlamSystem(cfg)  # the card is the default device
     check(slam.device.type == "cuda", f"main path: on {slam.device}")
     counters = _counters()
@@ -412,7 +481,7 @@ def phase_main(card):
         fn.launches = 0
     events = []
     outs = []
-    for i, (rgb, depth, _) in enumerate(frames):
+    for i, (rgb, depth, _) in enumerate(frames[:FRAMES]):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -431,16 +500,17 @@ def phase_main(card):
                   f"main path: non-finite {f}")
     check(all(0.9 * n_pix < c < 1.5 * n_pix for c in counts),
           f"main path: surfel counts not stable near {n_pix}: {counts}")
-    ate = slam.ate(np.arange(FRAMES) / 30.0, gt)
+    ate = slam.ate(np.arange(FRAMES) / 30.0, gt[:FRAMES])
     check(np.isfinite(ate) and ate < ATE_LIMIT,
           f"main path: ATE {ate} m >= {ATE_LIMIT}")
-    check(launches["bilateral_filter_mm"] >= FRAMES - 1,
-          f"main path: K1 launched {launches['bilateral_filter_mm']} times")
+    check(launches["preprocess_depth"] >= FRAMES - 1,
+          f"main path: K1 launched {launches['preprocess_depth']} times")
     check(launches["irls_solve"] >= FRAMES - 1,
           f"main path: K3 launched {launches['irls_solve']} times")
-    check(launches["spd_solve"] > 0,
-          f"main path: K2 (motion filter) launches {launches}")
-    # The covariance inverse runs inside K3's launch.
+    # The motion filter's solve and the covariance inverse run inside K3's
+    # launch.
+    check(launches["spd_solve"] == 0,
+          f"main path: K2 solve launched {launches['spd_solve']} times")
     check(launches["spd_inverse"] == 0,
           f"main path: K2 inverse launched {launches['spd_inverse']} times")
     med = float(np.median(steady))
@@ -454,7 +524,112 @@ def phase_main(card):
         f"{name} {v / FRAMES:.3f}" for name, v in launches.items()),
         flush=True)
     print("  ms/frame: " + " ".join(f"{m:.1f}" for m in ms), flush=True)
-    return launches, med
+    return launches, (slam, frames[FRAMES:])
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _is_kernel(event):
+    return not event.name.startswith(("Memcpy", "Memset"))
+
+
+def phase_profile(k1, k3, systems, main_run):
+    """One torch.profiler session (one, because a profiler session once
+    missed the kernel of a one-call session) over, first, one K3 call per
+    level size with the motion filter (the main path's) and one without
+    it, and 20 K1 calls at QVGA and at VGA, each call run twice (warm-up,
+    then timed) with a synchronize after each run; then PROFILE_FRAMES
+    more frames of the main path.  Each kernel call must be exactly one device kernel (the
+    device operations, in launch order, name the kernels called, and the
+    frames' K1 and K3 kernels match their launch counters).  Reports the
+    kernels' device times and the device kernels and busy time per frame.
+    Runs after the main path: run before it, the profiler coincided with
+    slower frames (its hooks may outlive it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from staticfusion_tpu_torch.kernels.bilateral import preprocess_depth_cuda
+    from staticfusion_tpu_torch.kernels.irls import (solve_irls_cuda,
+                                                     solve_irls_filtered_cuda)
+    kb = torch.tensor(1.5, device="cuda")
+    calls = []  # (kernel name, where its device time goes, call)
+    for n, (args, old, acc) in systems.items():
+        calls.append(("irls_solve_kernel", (k3["by_n"][str(n)], "device_us"),
+                      lambda a=args, o=old, c=acc: solve_irls_filtered_cuda(
+                          *a, o, c, 0, kb=kb)))
+        calls.append(("irls_solve_kernel",
+                      (k3["by_n"][str(n)], "device_us_without_filter"),
+                      lambda a=args: solve_irls_cuda(*a, kb=kb)))
+    reps = 20
+    for rows, cols in ((240, 320), (480, 640)):
+        d = torch.as_tensor(depth_image(np.random.default_rng(1), rows, cols),
+                            device="cuda")
+        key = f"device_us_{rows}x{cols}"
+        k1[key] = []
+        calls += [("preprocess_kernel", (k1, key),
+                   lambda d=d: preprocess_depth_cuda(d, 4.5))] * reps
+    slam, frames = main_run
+    counters = _counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, _, call in calls:
+            call()
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+        first = len(slam.times)
+        for i, (rgb, depth, _) in enumerate(frames):
+            slam.process(rgb, depth, (first + i) / 30.0)
+        torch.cuda.synchronize()
+    launched = {name: fn.launches - before[name]
+                for name, fn in counters.items()}
+    dev = sorted(_device_events(prof), key=lambda e: e.time_range.start)
+    check(len(dev) >= 2 * len(calls),
+          f"profile: {len(dev)} device operations for {2 * len(calls)} "
+          "kernel calls and the frames")
+    for i, (name, (where, key), _) in enumerate(calls):
+        warm, timed = dev[2 * i], dev[2 * i + 1]
+        check(name in warm.name and name in timed.name,
+              f"profile: call {i} ran {warm.name!r}, {timed.name!r}, "
+              f"expected one {name} each")
+        us = timed.time_range.elapsed_us()
+        if isinstance(where.get(key), list):
+            where[key].append(us)
+        else:
+            where[key] = us
+    for rows, cols in ((240, 320), (480, 640)):
+        key = f"device_us_{rows}x{cols}"
+        k1[key] = float(np.median(k1[key]))
+    k1["device_us"] = k1["device_us_240x320"]
+    k3["device_us"] = k3["by_n"][str(LEVEL_SIZES[0])]["device_us"]
+
+    frame_ops = dev[2 * len(calls):]
+    kernels = [e for e in frame_ops if _is_kernel(e)]
+    for name, counter in (("irls_solve_kernel", "irls_solve"),
+                          ("preprocess_kernel", "preprocess_depth")):
+        seen = sum(name in e.name for e in kernels)
+        in_frames = launched[counter] - 2 * sum(c[0] == name for c in calls)
+        check(seen == in_frames, f"profile: the frames ran {seen} {name}, "
+              f"their launch counter says {in_frames}")
+    n_frames = len(frames)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print("[profile] ok: one K3 call = 1 device kernel at every n, device "
+          "us with the motion filter (without): " + ", ".join(
+              f"n={n} {v['device_us']:.1f} "
+              f"({v['device_us_without_filter']:.1f})"
+              for n, v in k3["by_n"].items())
+          + f"; one K1 call = 1 device kernel, median device us over {reps}: "
+          f"240x320 {k1['device_us_240x320']:.2f}, 480x640 "
+          f"{k1['device_us_480x640']:.2f}", flush=True)
+    print(f"[profile] main path, frames {first}..{first + n_frames - 1}: "
+          f"{len(kernels) / n_frames:.1f} device kernels/frame, "
+          f"{(len(frame_ops) - len(kernels)) / n_frames:.1f} "
+          f"memcpy+memset/frame, kernel busy {busy_ms / n_frames:.3f} "
+          f"ms/frame", flush=True)
 
 
 def phase_cross():
@@ -510,16 +685,16 @@ def main() -> int:
         k1 = phase_k1()
         k2s, k2i = phase_k2()
         k3, k3_systems = phase_k3()
-        launches, _ = phase_main(card)
+        launches, main_run = phase_main(card)
         phase_cross()
-        phase_k3_profile(k3, k3_systems)
+        phase_profile(k1, k3, k3_systems, main_run)
     except (SmokeError, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     csrc = "staticfusion_tpu_torch/csrc/"
     pallas = "staticfusion_tpu/kernels/"
-    rows = [("bilateral_filter_mm", "bilateral.cu",
-             "bilateral_pallas.py:116", k1),
+    rows = [("preprocess_depth", "bilateral.cu",
+             "bilateral_pallas.py:117", k1),
             ("spd_solve", "smallsolve.cu", "smallsolve_pallas.py:75", k2s),
             ("spd_inverse", "smallsolve.cu", "smallsolve_pallas.py:93", k2i),
             ("irls_solve", "irls.cu", "irls_pallas.py:242", k3)]

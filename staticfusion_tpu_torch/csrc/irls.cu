@@ -5,8 +5,11 @@
 // Replaces staticfusion_tpu/kernels/irls_pallas.py:242 irls_solve_call (body
 // `_kernel`, wrapper `solve_irls_fused`) and the est_cov step that
 // solve_irls_fused runs right after it (irls_pallas.py:332,
-// spd_inverse(AtA, 1e-12) * res_sq).  Plain version:
-// staticfusion_tpu_torch/solver/irls.py::solve_irls_xla.
+// spd_inverse(AtA, 1e-12) * res_sq), and the motion filter's 6x6 solve
+// that follows each solve on the solver's path (solver/irls.py:189
+// motion_filter, by smallsolve_pallas.py:75 spd_solve).  Plain version:
+// staticfusion_tpu_torch/solver/irls.py::solve_irls_xla, then
+// ::motion_filter.
 //
 // What bounds it on the card.  The data is small: a pass reads 12 Jacobian
 // floats, 2 residual floats and 1 label per pixel, 60 B/pixel or 4.6 MB at
@@ -33,7 +36,9 @@
 //             sum |r_c|+|r_d| and sum r^2) -> grid.sync -> 24x24
 //             segmentation solve, commit, leave when converged;
 //   epilogue  est_cov = (A^T W A + 1e-12 I)^-1 * res_sq with K2's warp
-//             solve against the identity (smallsolve.cuh), in block 0.
+//             solve against the identity (smallsolve.cuh), then the
+//             motion filter of the twist (one more 6x6 warp solve), in
+//             block 0.
 // The small solves after each barrier run in warp 0 of EVERY block, on
 // identical inputs with identical instructions, so every block holds the
 // same twist, weights and exit flag in its own shared memory.  That makes
@@ -76,6 +81,7 @@ constexpr int OUT_AVER = 30;
 constexpr int OUT_RESSQ = 31;
 constexpr int OUT_COV = 32;     // 36, row-major 6x6
 constexpr int OUT_ITERS = 68;   // iterations run
+constexpr int OUT_FILT = 69;    // 6, the motion-filtered twist
 
 __device__ __forceinline__ int tri_index(int r, int c) {
   // Row-major upper triangle of a 6x6, r <= c.
@@ -146,8 +152,11 @@ irls_solve_kernel(const float* __restrict__ a_c,
                   const float* __restrict__ valid_count,
                   const float* __restrict__ reg,
                   const float* __restrict__ kb_ptr, float kb_val,
-                  float* scratch, float* __restrict__ out, int max_iter,
-                  float kc, float lambda_prior, float delta_thr) {
+                  const float* __restrict__ twist_old,
+                  const float* __restrict__ acc_twist, float cf, float df,
+                  int filter_on, float* scratch, float* __restrict__ out,
+                  int max_iter, float kc, float lambda_prior,
+                  float delta_thr) {
   cg::grid_group grid = cg::this_grid();
   // The solver state; every block keeps its own, identical copy.
   __shared__ float s_tw[6];          // current twist
@@ -357,7 +366,8 @@ irls_solve_kernel(const float* __restrict__ a_c,
     if (s_done) break;  // the same value in every block
   }
 
-  // Epilogue: outputs of the last executed iteration and est_cov.
+  // Epilogue: outputs of the last executed iteration, est_cov, and the
+  // motion filter of the twist.
   if (blockIdx.x == 0 && warp0) {
     float a[8];
     float x[8];
@@ -368,10 +378,11 @@ irls_solve_kernel(const float* __restrict__ a_c,
       x[k] = (lane < 6 && k == lane) ? 1.f : 0.f;
     }
     warp_chol_solve<8, 8>(a, x, 6, 6);
+    const float tw = lane < 6 ? s_tw[lane] : 0.f;
     if (lane < 6) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) out[OUT_COV + lane * 6 + k] = x[k] * res_sq;
-      out[OUT_TWIST + lane] = s_tw[lane];
+      out[OUT_TWIST + lane] = tw;
     }
     if (lane < kK) out[OUT_BSEGM + lane] = s_bext[lane];
     if (lane == 0) {
@@ -379,6 +390,25 @@ irls_solve_kernel(const float* __restrict__ a_c,
       out[OUT_RESSQ] = res_sq;
       out[OUT_ITERS] = static_cast<float>(it);
     }
+    // Motion filter (FrontEnd.cpp:713-756; solver/irls.py::motion_filter):
+    // with C = est_cov and k = twist_old - accumulated twist,
+    // filtered = ((1 + df) I + cf C)^-1 (twist + cf C k + df k).
+    float filt[1] = {tw};
+    if (filter_on) {
+      const float kv = lane < 6 ? twist_old[lane] - acc_twist[lane] : 0.f;
+      float m[8];
+      float ck = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float kk = __shfl_sync(SF_FULL_MASK, kv, k);
+        const float c = (lane < 6 && k < 6) ? x[k] * res_sq : 0.f;
+        m[k] = (k == lane && lane < 6 ? 1.f + df : 0.f) + cf * c;
+        ck += c * kk;
+      }
+      filt[0] = lane < 6 ? tw + cf * ck + df * kv : 0.f;
+      warp_chol_solve<8, 1>(m, filt, 6, 1);
+    }
+    if (lane < 6) out[OUT_FILT + lane] = filt[0];
   }
 }
 
@@ -404,22 +434,28 @@ int sf_irls_max_blocks(int device) {
 
 // One IRLS solve.  a_c, a_d (6, n); b_c, b_d (n); lbl (n) int32 in
 // [0, 24]; b0, b_prior, lam, counts (24); valid_count (1); reg (24, 24);
-// kb from kb_ptr (1) when it is not null, else kb.  scratch holds
+// kb from kb_ptr (1) when it is not null, else kb.  filter_on != 0 runs
+// the motion filter with weights cf, df on twist_old and acc_twist (6
+// each, the accumulated twist of the level); else both may be null and
+// the filtered twist is the twist.  scratch holds
 // tiles * (2 + 27 + 25) floats with tiles = ceil(n / tile); grid <=
-// sf_irls_max_blocks() and <= tiles.  Writes out (69): twist 6, b_segm
-// 24, aver_res, res_sq, est_cov 36, iterations.  Returns the launch's
-// error or cudaGetLastError(), 0 on success.
+// sf_irls_max_blocks() and <= tiles.  Writes out (75): twist 6, b_segm
+// 24, aver_res, res_sq, est_cov 36, iterations, filtered twist 6.
+// Returns the launch's error or cudaGetLastError(), 0 on success.
 int sf_irls_solve(const float* a_c, const float* a_d, const float* b_c,
                   const float* b_d, const int* lbl, int n, int tile, int grid,
                   const float* b0, const float* b_prior, const float* lam,
                   const float* counts, const float* valid_count,
                   const float* reg, const float* kb_ptr, float kb,
-                  float* scratch, float* out, int max_iter, float kc,
-                  float lambda_prior, float delta_thr, cudaStream_t stream) {
-  void* args[] = {&a_c,    &a_d,      &b_c,          &b_d,     &lbl,
-                  &n,      &tile,     &b0,           &b_prior, &lam,
-                  &counts, &valid_count, &reg,       &kb_ptr,  &kb,
-                  &scratch, &out,     &max_iter,     &kc,      &lambda_prior,
+                  const float* twist_old, const float* acc_twist, float cf,
+                  float df, int filter_on, float* scratch, float* out,
+                  int max_iter, float kc, float lambda_prior, float delta_thr,
+                  cudaStream_t stream) {
+  void* args[] = {&a_c,       &a_d,       &b_c,      &b_d,     &lbl,
+                  &n,         &tile,      &b0,       &b_prior, &lam,
+                  &counts,    &valid_count, &reg,    &kb_ptr,  &kb,
+                  &twist_old, &acc_twist, &cf,       &df,      &filter_on,
+                  &scratch,   &out,       &max_iter, &kc,      &lambda_prior,
                   &delta_thr};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(irls_solve_kernel), dim3(grid),

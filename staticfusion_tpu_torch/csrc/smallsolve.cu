@@ -9,8 +9,8 @@
 // holds the whole system in registers: one warp, lane i = row i (n <= 32),
 // no shared memory, no block-level synchronisation.  The same device
 // function runs inside the IRLS kernel (irls.cu), where the 6x6 and 24x24
-// solves and the covariance inverse cost no launch of their own; on the
-// main path this kernel serves only the motion filter's 6x6 solve.
+// solves, the covariance inverse and the motion filter's 6x6 solve cost
+// no launch of their own, so the main path does not launch this kernel.
 #include <cuda_runtime.h>
 
 #include "smallsolve.cuh"

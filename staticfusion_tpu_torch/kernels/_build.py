@@ -27,11 +27,12 @@ _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sf_bilateral": [_P, _P, _I, _I, _F, _F, _P],
+    "sf_preprocess": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
     "sf_spd_solve": [_P, _P, _P, _I, _I, _F, _I, _P],
     "sf_irls_max_blocks": [_I],
     "sf_irls_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                      _P, _P, _F, _P, _P, _I, _F, _F, _F, _P],
+                      _P, _P, _F, _P, _P, _F, _F, _I, _P, _P, _I, _F, _F,
+                      _F, _P],
 }
 
 

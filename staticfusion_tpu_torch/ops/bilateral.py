@@ -3,9 +3,10 @@ staticfusion_tpu/ops/bilateral.py).
 
 Reference: `depth_bilateral.frag` (13x13 window, R=6) and
 `depth_metric.frag` (mm -> m with the [300 mm, maxD] gates).
-`bilateral_filter_mm` dispatches on the tensor's device: the CUDA kernel
-(kernels/bilateral.py, csrc/bilateral.cu) for CUDA tensors, the plain
-169-tap version below for CPU tensors.
+`preprocess_depth_mm` (the frame's call: the raw and the filtered image in
+metres) and `bilateral_filter_mm` dispatch on the tensor's device: the
+CUDA kernel (kernels/bilateral.py, csrc/bilateral.cu) for CUDA tensors,
+the plain versions below for CPU tensors.
 """
 
 from __future__ import annotations
@@ -60,6 +61,24 @@ def bilateral_filter_mm(depth_mm: torch.Tensor,
             bilateral_filter_mm_cuda
         return bilateral_filter_mm_cuda(depth_mm, max_depth_m)
     return bilateral_filter_mm_plain(depth_mm, max_depth_m)
+
+
+def preprocess_depth_mm_plain(depth_mm: torch.Tensor, max_depth_m: float):
+    """(raw_m, filt_m): metricise_depth_mm of the image and of its
+    bilateral filter (Reconstruction.cpp:327-346)."""
+    filtered_mm = bilateral_filter_mm_plain(depth_mm, max_depth_m)
+    return (metricise_depth_mm(depth_mm, max_depth_m),
+            metricise_depth_mm(filtered_mm, max_depth_m))
+
+
+def preprocess_depth_mm(depth_mm: torch.Tensor, max_depth_m: float):
+    """(raw_m, filt_m) of a depth image in millimetres: one launch of the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if on_cuda(depth_mm):
+        from staticfusion_tpu_torch.kernels.bilateral import \
+            preprocess_depth_cuda
+        return preprocess_depth_cuda(depth_mm, max_depth_m)
+    return preprocess_depth_mm_plain(depth_mm, max_depth_m)
 
 
 def metricise_depth_mm(depth_mm: torch.Tensor,

@@ -5,6 +5,9 @@ staticfusion_tpu/solver/irls.py; reference FrontEnd.cpp:513-772).
 package's XLA formulation, same name so the two line up); `solve_irls`
 dispatches on the device: the one-launch CUDA kernel (kernels/irls.py,
 csrc/irls.cu) for CUDA tensors, the plain loop for CPU tensors.
+`solve_irls_filtered`, the solver's call, adds the motion filter: inside
+the same launch on the card, `motion_filter` after the plain loop on the
+CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from staticfusion_tpu_torch.config import NUM_CLUSTERS, SFConfig
+from staticfusion_tpu_torch.geometry import se3
 from staticfusion_tpu_torch.kernels._build import on_cuda
 from staticfusion_tpu_torch.ops.derivatives import (Derivatives, InterCoords,
                                                     PreWeights)
@@ -104,6 +108,28 @@ def solve_irls(sys: JacobianSystem, b_segm0: torch.Tensor, prior: SegPrior,
     return solve_irls_xla(sys, b_segm0, prior, reg_ata, config, kb=kb)
 
 
+def solve_irls_filtered(sys: JacobianSystem, b_segm0: torch.Tensor,
+                        prior: SegPrior, reg_ata: torch.Tensor,
+                        config: SFConfig, twist_old: torch.Tensor,
+                        T_odo: torch.Tensor, level: int, kb=None):
+    """(IRLSResult, twist): the coupled IRLS loop, then, when
+    `config.solver.use_motion_filter`, the motion filter of its twist at
+    `level` against the accumulated `T_odo` (else the twist unfiltered).
+    CUDA tensors take one launch of the K3 kernel, which runs the filter
+    in its epilogue; CPU tensors the plain loop, then `motion_filter`."""
+    acc = se3.se3_log(T_odo) if config.solver.use_motion_filter else None
+    if on_cuda(sys.B_c):
+        from staticfusion_tpu_torch.kernels.irls import \
+            solve_irls_filtered_cuda
+        return solve_irls_filtered_cuda(sys, b_segm0, prior, reg_ata, config,
+                                        twist_old, acc, level, kb=kb)
+    result = solve_irls_xla(sys, b_segm0, prior, reg_ata, config, kb=kb)
+    if acc is None:
+        return result, result.twist
+    return result, motion_filter(result.twist, result.est_cov, twist_old,
+                                 acc, level, config)
+
+
 def solve_irls_xla(sys: JacobianSystem, b_segm0: torch.Tensor,
                    prior: SegPrior, reg_ata: torch.Tensor, config: SFConfig,
                    kb=None) -> IRLSResult:
@@ -152,16 +178,22 @@ def solve_irls_xla(sys: JacobianSystem, b_segm0: torch.Tensor,
                       aver_res=aver_res)
 
 
+def motion_filter_weights(level: int, config: SFConfig) -> tuple:
+    """(cf, df): the motion filter's covariance and constant weights at
+    solver level `level` (FrontEnd.cpp:713-756)."""
+    s = config.solver
+    return (s.previous_speed_eig_weight * math.exp(-level),
+            s.previous_speed_const_weight * math.exp(-level))
+
+
 def motion_filter(twist: torch.Tensor, est_cov: torch.Tensor,
                   twist_old: torch.Tensor, accumulated_twist: torch.Tensor,
                   level: int, config: SFConfig) -> torch.Tensor:
     """Low-pass the level twist in the covariance eigenbasis
     (FrontEnd.cpp:713-756) as one 6x6 SPD solve:
     M = (1+df) I + cf C;  kai_fil = M^-1 (kai + (cf C + df I) kai_old)."""
-    s = config.solver
     kai_loc_sub = twist_old - accumulated_twist
-    cf = s.previous_speed_eig_weight * math.exp(-level)
-    df = s.previous_speed_const_weight * math.exp(-level)
+    cf, df = motion_filter_weights(level, config)
     eye = torch.eye(6, dtype=est_cov.dtype, device=est_cov.device)
     M = (1.0 + df) * eye + cf * est_cov
     rhs = twist + cf * (est_cov @ kai_loc_sub) + df * kai_loc_sub

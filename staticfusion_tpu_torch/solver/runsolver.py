@@ -25,7 +25,7 @@ from staticfusion_tpu_torch.solver.clustering import (Clustering,
                                                       cluster_frame)
 from staticfusion_tpu_torch.solver.irls import (build_jacobian,
                                                 cluster_onehot,
-                                                motion_filter, solve_irls)
+                                                solve_irls_filtered)
 from staticfusion_tpu_torch.solver.segmentation import (compute_seg_prior,
                                                         reg_normal_matrix)
 
@@ -51,11 +51,8 @@ def _solve_at_level(cur: PyramidLevel, warped: WarpedImages, labels,
     # The coarsest level restarts the segmentation from the prior
     # (FrontEnd.cpp:604); later levels refine the carried solution.
     b_init = prior.b_prior if level_idx == 0 else b_segm
-    result = solve_irls(sys, b_init, prior, reg_ata, config, kb=kb)
-    twist = result.twist
-    if config.solver.use_motion_filter:
-        twist = motion_filter(twist, result.est_cov, twist_old,
-                              se3.se3_log(T_odo), level_idx, config)
+    result, twist = solve_irls_filtered(sys, b_init, prior, reg_ata, config,
+                                        twist_old, T_odo, level_idx, kb=kb)
     T_new = se3.se3_exp(twist) @ T_odo
     converged = torch.linalg.vector_norm(twist) < \
         config.solver.level_twist_convergence

@@ -1,8 +1,11 @@
-"""The port's plain kernel versions (K1 bilateral, K2 small SPD solves, K3
-coupled IRLS loop) against the JAX package on the same numpy inputs: the
-XLA formulations, and the Pallas kernels in interpret mode, at the shapes
-and tolerances of tests/test_pallas_kernels.py.  The CUDA kernels
+"""The port's plain kernel versions (K1 bilateral and the depth
+preprocessing around it, K2 small SPD solves, K3 coupled IRLS loop and the
+motion filter after it) against the JAX package on the same numpy inputs:
+the XLA formulations, and the Pallas kernels in interpret mode, at the
+shapes and tolerances of tests/test_pallas_kernels.py.  The CUDA kernels
 themselves run only on the card (chip_smoke.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -273,7 +276,10 @@ def test_kernel_interfaces_match_the_sources():
     assert found == _build._SIGNATURES
     assert {k: int(v) for k, v in offsets.items()} == {
         k: getattr(k3, k) for k in offsets}
-    assert k3.OUT_SIZE == k3.OUT_COV + 36 + 1 == k3.OUT_ITERS + 1
+    # twist 6, b_segm 24, aver_res, res_sq, est_cov 36, iterations, the
+    # motion-filtered twist 6.
+    assert k3.OUT_SIZE == k3.OUT_COV + 36 + 1 + 6 == k3.OUT_ITERS + 1 + 6 \
+        == k3.OUT_FILT + 6 == 75
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -333,3 +339,160 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         pt_smallsolve.spd_solve_fast(torch.empty((6, 6), device="meta"),
                                      torch.empty(6, device="meta"))
+
+
+# --- The solver's call: K3 and the motion filter in one dispatch -----------
+
+_JAX_FUSED = {}  # n -> the JAX fused loop (interpret mode) on _filter_case
+
+
+def _filter_case(n):
+    """Numpy inputs of one filtered solve: a random system, b_segm0, the
+    previous frame's twist and the level's accumulated transform."""
+    from staticfusion_tpu_torch.geometry import se3 as pt_se3
+
+    rng = np.random.default_rng(n + 17)
+    a = _random_system(rng, n)
+    b0 = rng.uniform(0, 1, 24).astype(np.float32)
+    twist_old = rng.normal(0.0, 0.01, 6).astype(np.float32)
+    T_odo = pt_se3.se3_exp(torch.as_tensor(
+        rng.normal(0.0, 0.01, 6).astype(np.float32))).numpy()
+    return a, b0, twist_old, T_odo
+
+
+def _solver_config(cfg, use_filter):
+    return cfg.replace(solver=dataclasses.replace(
+        cfg.solver, use_motion_filter=use_filter))
+
+
+@pytest.mark.parametrize("use_filter", [True, False])
+@pytest.mark.parametrize("level", [0, 2])
+@pytest.mark.parametrize("n", [300, 1200])
+def test_irls_filtered_plain_matches_jax(n, level, use_filter):
+    """The solver's call on CPU tensors is the plain loop followed by the
+    motion filter, bit for bit (the twist unfiltered with the filter off),
+    and agrees with the JAX fused Pallas kernel in interpret mode followed
+    by the JAX motion filter, at test_irls_plain_matches_jax's
+    tolerances."""
+    from staticfusion_tpu.geometry import se3 as jax_se3
+    from staticfusion_tpu.kernels import irls_pallas
+    from staticfusion_tpu.solver.irls import motion_filter as jax_filter
+    from staticfusion_tpu_torch.geometry import se3 as pt_se3
+    from staticfusion_tpu_torch.solver.irls import (motion_filter,
+                                                    solve_irls_filtered,
+                                                    solve_irls_xla)
+
+    a, b0, twist_old, T_odo = _filter_case(n)
+    tsys, tprior, treg, tcfg = _torch_system(a)
+    tcfg = _solver_config(tcfg, use_filter)
+    tb0, told, tT = map(torch.as_tensor, (b0, twist_old, T_odo))
+    got, twist = solve_irls_filtered(tsys, tb0, tprior, treg, tcfg, told,
+                                     tT, level)
+    plain = solve_irls_xla(tsys, tb0, tprior, treg, tcfg)
+    want_twist = (motion_filter(plain.twist, plain.est_cov, told,
+                                pt_se3.se3_log(tT), level, tcfg)
+                  if use_filter else plain.twist)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    assert torch.equal(twist, want_twist)
+
+    if n not in _JAX_FUSED:
+        jsys, jprior, jreg, jcfg = _jax_system(a)
+        _JAX_FUSED[n] = irls_pallas.solve_irls_fused(
+            jsys, jnp.asarray(b0), jprior, jreg, jcfg, interpret=True), jcfg
+    fused, jcfg = _JAX_FUSED[n]
+    _assert_irls_close(got, fused)
+    jtwist = (jax_filter(fused.twist, fused.est_cov, jnp.asarray(twist_old),
+                         jax_se3.se3_log(jnp.asarray(T_odo)), level, jcfg)
+              if use_filter else fused.twist)
+    np.testing.assert_allclose(twist.numpy(), np.asarray(jtwist), rtol=2e-4,
+                               atol=2e-6)
+
+
+# --- The frame's depth preprocessing: K1 and both metricise passes --------
+
+@pytest.mark.parametrize("rows,cols", [(24, 64), (40, 320)])
+def test_preprocess_plain_matches_jax(rows, cols):
+    """The preprocessing call on a CPU tensor is the plain bilateral filter
+    followed by the two metricise calls, bit for bit, and agrees with the
+    JAX pair on the same depth: raw_m exactly, filt_m within the bilateral
+    gate (read back in millimetres)."""
+    d = _depth_image(np.random.default_rng(rows * 7 + cols), rows, cols)
+    t = torch.as_tensor(d)
+    raw_m, filt_m = pt_bilateral.preprocess_depth_mm(t, 4.5)
+    filtered = pt_bilateral.bilateral_filter_mm_plain(t, 4.5)
+    assert torch.equal(raw_m, pt_bilateral.metricise_depth_mm(t, 4.5))
+    assert torch.equal(filt_m,
+                       pt_bilateral.metricise_depth_mm(filtered, 4.5))
+
+    jd = jnp.asarray(d)
+    np.testing.assert_array_equal(
+        raw_m.numpy(), np.asarray(jax_bilateral.metricise_depth_mm(jd, 4.5)))
+    want = np.asarray(jax_bilateral.metricise_depth_mm(
+        jax_bilateral.bilateral_filter_mm(jd, 4.5), 4.5))
+    _bilateral_gate(np.rint(filt_m.numpy() * 1000.0),
+                    np.rint(want * 1000.0), d)
+
+
+def _all_counters():
+    from staticfusion_tpu_torch.kernels.bilateral import (
+        bilateral_filter_mm_cuda, preprocess_depth_cuda)
+    from staticfusion_tpu_torch.kernels.irls import solve_irls_cuda
+    from staticfusion_tpu_torch.kernels.smallsolve import (spd_inverse_cuda,
+                                                           spd_solve_cuda)
+    return (preprocess_depth_cuda, bilateral_filter_mm_cuda, solve_irls_cuda,
+            spd_solve_cuda, spd_inverse_cuda)
+
+
+def test_preprocess_and_filtered_solve_leave_the_counters_on_cpu():
+    """The two new dispatch calls take the plain versions for CPU tensors:
+    no launch counter moves."""
+    from staticfusion_tpu_torch.solver.irls import solve_irls_filtered
+
+    before = [fn.launches for fn in _all_counters()]
+    d = torch.as_tensor(_depth_image(np.random.default_rng(6), 16, 24))
+    pt_bilateral.preprocess_depth_mm(d, 4.5)
+    a, b0, twist_old, T_odo = _filter_case(300)
+    sys, prior, reg, cfg = _torch_system(a)
+    for use_filter in (True, False):
+        solve_irls_filtered(sys, torch.as_tensor(b0), prior, reg,
+                            _solver_config(cfg, use_filter),
+                            torch.as_tensor(twist_old),
+                            torch.as_tensor(T_odo), 1)
+    assert [fn.launches for fn in _all_counters()] == before
+
+
+def test_new_cuda_wrappers_reject_cpu_tensors():
+    """The preprocessing and filtered-solve wrappers never fall back: a CPU
+    tensor is refused before any build or launch, and counts nothing; the
+    dispatch calls refuse other devices."""
+    from staticfusion_tpu_torch.kernels.bilateral import preprocess_depth_cuda
+    from staticfusion_tpu_torch.kernels.irls import solve_irls_filtered_cuda
+
+    before = [fn.launches for fn in _all_counters()]
+    with pytest.raises(ValueError, match="CUDA"):
+        preprocess_depth_cuda(torch.zeros(8, 8), 4.5)
+    sys, prior, reg, cfg = _torch_system(
+        _random_system(np.random.default_rng(4), 300))
+    for acc in (torch.zeros(6), None):
+        with pytest.raises(ValueError, match="CUDA"):
+            solve_irls_filtered_cuda(sys, torch.full((24,), 0.5), prior, reg,
+                                     cfg, torch.zeros(6), acc, 0)
+    assert [fn.launches for fn in _all_counters()] == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt_bilateral.preprocess_depth_mm(torch.empty((8, 8), device="meta"),
+                                         4.5)
+
+
+def test_preprocess_outputs_match_the_source():
+    """The wrapper passes sf_preprocess's output pointers in the order the
+    source declares them."""
+    import re
+
+    from staticfusion_tpu_torch.kernels import _build
+    from staticfusion_tpu_torch.kernels import bilateral as k1
+
+    text = (_build.CSRC / "bilateral.cu").read_text()
+    params = re.search(r"^int sf_preprocess\(([^)]*)\)", text, re.M)
+    names = [p.split()[-1].lstrip("*") for p in params.group(1).split(",")]
+    assert tuple(names[1:4]) == k1._OUTPUTS
