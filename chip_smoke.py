@@ -17,7 +17,7 @@ Phases (each prints one line; any failure exits non-zero):
      peak and, for K1, its expf over the special-function units' rate)
      and, for K2, beside torch.linalg's call.  K1 (the depth
      preprocessing) at QVGA and VGA; K3 with the motion filter at all
-     five QVGA level sizes;
+     five QVGA level sizes and at VGA level 0;
   4. main path: SlamSystem(SFConfig()) on the card over a 30-frame
      synthetic static QVGA sequence (seed 0): ATE, finiteness, surfel
      counts, per-kernel launch counts of that run (the standalone K2
@@ -25,12 +25,19 @@ Phases (each prints one line; any failure exits non-zero):
      ms/frame;
   5. card vs CPU: the first 6 frames through the port on the card and on
      the CPU, poses and surfel counts compared;
-  6. profile: torch.profiler counts the device kernels of one K3 call
+  6. gates: the five adversarial accuracy gates of tests/test_accuracy.py
+     through SlamSystem.process_batch on the card, at the test's configs,
+     frame counts, seed and thresholds (walk_xyz at F=1 and at the F=4
+     default, routed VGA at F=1, fast_rot and static at F=1); per gate ATE,
+     IoU, median ms/frame and launches per frame (the counts set to 0
+     before each gate and read after it); the generator's time first;
+  7. profile: torch.profiler counts the device kernels of one K3 call
      at each level size and of one K1 call (exactly one each) and their
      device times, and the device kernels and busy time per main-path
      frame over 3 more frames.  Last, because a profiler run before the
      main path coincided with slower frames;
-then a JSON line with the kernels, and last a JSON line
+then the script's total time, a JSON line with the kernels (their
+launches on the main path and in each gate), and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -61,8 +68,19 @@ FP32_FLOP_PER_S = 67e12
 # SM (CUDA C++ Programming Guide, throughput table, compute capability
 # 9.0) x 132 SMs x the 1.98 GHz boost clock of the data sheet's peaks.
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
-# QVGA pyramid level sizes, level 0 first (K3's N per solve).
+# QVGA pyramid level sizes, level 0 first (K3's N per solve), and VGA
+# level 0 (the routed VGA gate's largest solve).
 LEVEL_SIZES = (76800, 19200, 4800, 1200, 300)
+VGA_N = 307200
+# tests/test_accuracy.py's gates: (name, profile, width, height, capacity,
+# index_factor, frames, ATE limit, IoU floor or None).  Seed 0.
+GATES = (
+    ("walk_xyz F=1", "walk_xyz", 320, 240, 1 << 18, 1, 30, 0.15, 0.25),
+    ("walk_xyz F=4", "walk_xyz", 320, 240, 1 << 18, 4, 30, 0.05, 0.55),
+    ("VGA routed", "walk_xyz", 640, 480, 1 << 20, 1, 16, 0.1, 0.35),
+    ("fast_rot", "fast_rot", 320, 240, 1 << 18, 1, 30, 0.02, None),
+    ("static", "static", 320, 240, 1 << 18, 1, 30, 0.02, None),
+)
 # Flop per in-image bilateral tap: diff, square, the exponent's FMA, expf
 # counted as one, the two weighted sums (an FMA is 2); each tap's expf is
 # also one special-function op.
@@ -350,7 +368,7 @@ def phase_k3():
                                                      solve_irls_filtered_cuda,
                                                      solve_irls_xla)
     worst = 0.0
-    for n in LEVEL_SIZES + (1500,):
+    for n in LEVEL_SIZES + (1500, VGA_N):
         for kb in (1.05, 1.5):
             rng = np.random.default_rng(n)
             sys_g, b0_g, prior_g, reg_g, cfg = random_irls_system(rng, n,
@@ -406,7 +424,8 @@ def phase_k3():
                                   getattr(plain_launch, f)),
                       f"{tag}: {f} differs from the unfiltered launch")
             worst = max(worst, float((twist.cpu() - want_twist).abs().max()))
-    print(f"[K3 irls] ok: n {', '.join(map(str, LEVEL_SIZES))} and 1500, kb "
+    print(f"[K3 irls] ok: n {', '.join(map(str, LEVEL_SIZES))}, 1500 and "
+          f"{VGA_N}, kb "
           f"1.05 and 1.5: twist/b_segm rtol 2e-4, aver_res rtol 1e-4, "
           f"est_cov rtol 2e-3 of the plain loop on the CPU; motion filter "
           f"of levels 0 and 4 in the launch: rtol 2e-4 of solve_irls_xla + "
@@ -414,7 +433,7 @@ def phase_k3():
 
     kb = torch.tensor(1.5, device="cuda")
     by_n, systems = {}, {}
-    for n in LEVEL_SIZES:
+    for n in LEVEL_SIZES + (VGA_N,):
         args = random_irls_system(np.random.default_rng(n), n, "cuda")
         old, acc = (t.cuda() for t in random_filter_inputs(
             np.random.default_rng(n)))
@@ -632,6 +651,109 @@ def phase_profile(k1, k3, systems, main_run):
           f"ms/frame", flush=True)
 
 
+def phase_gates(card):
+    """tests/test_accuracy.py's five gates through the port on the card.
+    Each walk_xyz QVGA sequence is rendered once and serves both walk
+    gates.  Per gate: ATE and mean IoU against the test's limits, the
+    median of per-frame CUDA-event times around slam_step (frames after
+    the bootstrap, the first steady frame excluded), and the kernel
+    launches of its process_batch run."""
+    import torch
+
+    import staticfusion_tpu_torch.pipeline.system as system_mod
+    from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
+                                               SFConfig)
+    from staticfusion_tpu_torch.io import adversarial as adv
+    t0 = time.perf_counter()
+    sequences = {}
+    for _, profile, w, h, _, _, n, _, _ in GATES:
+        if (profile, w, h) not in sequences:
+            cfg = SFConfig(camera=CameraConfig(width=w, height=h))
+            sequences[(profile, w, h)] = adv.make_adversarial_sequence(
+                cfg, n, profile, seed=0)
+    gen_s = time.perf_counter() - t0
+    print(f"[gates] generator: {len(sequences)} sequences "
+          f"({sum(len(f) for f, _ in sequences.values())} frames) in "
+          f"{gen_s:.1f} s on the host", flush=True)
+
+    step = system_mod.slam_step
+    events = []
+
+    def timed_step(state, frame, config):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, frame, config)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    counters = _counters()
+    results = {}
+    system_mod.slam_step = timed_step
+    try:
+        for name, profile, w, h, cap, factor, n, ate_max, iou_min in GATES:
+            config = SFConfig(camera=CameraConfig(width=w, height=h),
+                              fusion=FusionConfig(capacity=cap,
+                                                  index_factor=factor))
+            frames, gt = sequences[(profile, w, h)]
+            check(len(frames) == n, f"{name}: {len(frames)} frames")
+            slam = system_mod.SlamSystem(config)
+            check(slam.device.type == "cuda", f"{name}: on {slam.device}")
+            events.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            probs = slam.process_batch(
+                [f[0] for f in frames], [f[1] for f in frames],
+                [i / 30.0 for i in range(n)], collect_prob=True)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            launches = {k: fn.launches for k, fn in counters.items()}
+            probs = probs.cpu().numpy()
+            check(probs.shape == (n - 1, h, w) and np.isfinite(probs).all(),
+                  f"{name}: static_prob stack {probs.shape}")
+            ious = [adv.dynamic_iou(probs[i - 1], frames[i][2],
+                                    frames[i][1])
+                    for i in range(1, n)
+                    if i >= config.buffer_length and frames[i][2].sum() > 50]
+            iou = float(np.mean(ious)) if ious else None
+            ate = slam.ate(np.arange(n) / 30.0, gt)
+            ms = [e0.elapsed_time(e1) for e0, e1 in events]
+            med = float(np.median(ms[1:]))
+            check(launches["preprocess_depth"] >= n - 1,
+                  f"{name}: K1 launched {launches['preprocess_depth']} times")
+            check(launches["irls_solve"] >= n - 1,
+                  f"{name}: K3 launched {launches['irls_solve']} times")
+            check(launches["spd_solve"] == 0 and launches["spd_inverse"] == 0,
+                  f"{name}: K2 launched standalone: {launches}")
+            if name == "VGA routed":
+                check(config.fusion.route_factor == 0,
+                      "VGA routed: route_factor is not auto")
+            ok = np.isfinite(ate) and ate < ate_max and (
+                iou_min is None or (iou is not None and iou > iou_min))
+            results[name] = {"ate": ate, "iou": iou, "ms": med,
+                             "launches": launches, "ok": ok}
+            print(f"  {name}: {w}x{h} F={factor} capacity {cap}, {n} frames: "
+                  f"ATE {ate:.5f} m (< {ate_max}), IoU "
+                  f"{'n/a' if iou is None else f'{iou:.4f}'}"
+                  f"{'' if iou_min is None else f' (> {iou_min})'}; median "
+                  f"{med:.3f} ms/frame over frames 3..{n - 1} (min "
+                  f"{min(ms[1:]):.3f}, max {max(ms[1:]):.3f}), run "
+                  f"{run_s:.1f} s; launches per frame: " + ", ".join(
+                      f"{k} {v / n:.3f}" for k, v in launches.items())
+                  + f"; surfels {slam.total_surfels()} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+    finally:
+        system_mod.slam_step = step
+    failed = [k for k, v in results.items() if not v["ok"]]
+    check(not failed, f"gates failed: {failed}")
+    print(f"[gates] ok: all {len(GATES)} gates of tests/test_accuracy.py "
+          f"pass through the port on {card}; generator {gen_s:.1f} s",
+          flush=True)
+    return results
+
+
 def phase_cross():
     from staticfusion_tpu_torch.config import SFConfig
     from staticfusion_tpu_torch.io import synthetic
@@ -662,6 +784,7 @@ def phase_cross():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -687,6 +810,7 @@ def main() -> int:
         k3, k3_systems = phase_k3()
         launches, main_run = phase_main(card)
         phase_cross()
+        gates = phase_gates(card)
         phase_profile(k1, k3, k3_systems, main_run)
     except (SmokeError, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
@@ -698,9 +822,12 @@ def main() -> int:
             ("spd_solve", "smallsolve.cu", "smallsolve_pallas.py:75", k2s),
             ("spd_inverse", "smallsolve.cu", "smallsolve_pallas.py:93", k2i),
             ("irls_solve", "irls.cu", "irls_pallas.py:242", k3)]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src,
-         "replaces": pallas + rep, "launches": launches[name], **m}
+         "replaces": pallas + rep, "launches": launches[name], **m,
+         "launches_by_gate": {g: r["launches"][name]
+                              for g, r in gates.items()}}
         for name, src, rep, m in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

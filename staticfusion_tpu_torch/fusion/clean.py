@@ -1,13 +1,18 @@
-"""Map cleaning: the copy_unstable window test as a stencil over texel
-attribute images (port of window_kill_tex / kill_mask_from_tex in
-staticfusion_tpu/fusion/clean.py; reference copy_unstable.vert)."""
+"""Map cleaning (port of window_kill_tex, kill_mask_from_tex and
+writeback_and_insert in staticfusion_tpu/fusion/clean.py; reference
+copy_unstable.vert): the window test as a stencil over texel attribute
+images, and the texel fuse's write-back of merged texels with the
+lifecycle kills and the new-surfel insert."""
 
 from __future__ import annotations
 
 import torch
 
 from staticfusion_tpu_torch.config import SFConfig
-from staticfusion_tpu_torch.fusion.texelmap import TexelImages
+from staticfusion_tpu_torch.fusion.association import NewSurfels
+from staticfusion_tpu_torch.fusion.surfels import (SurfelMap,
+                                                   append_at_watermark)
+from staticfusion_tpu_torch.fusion.texelmap import SurfelsLocal, TexelImages
 
 
 def _axis_weight(off: int, frac: torch.Tensor, F: int) -> torch.Tensor:
@@ -84,3 +89,66 @@ def kill_mask_from_tex(kill_tex: torch.Tensor, idx: torch.Tensor,
     killed = torch.zeros(capacity + 1, dtype=torch.bool, device=idx.device)
     killed[tgt] = True
     return killed[:capacity]
+
+
+def writeback_and_insert(smap: SurfelMap, merged: TexelImages,
+                         upd_has: torch.Tensor, kill_tex: torch.Tensor,
+                         local: SurfelsLocal, new: NewSurfels,
+                         pose: torch.Tensor, tick: torch.Tensor,
+                         config: SFConfig) -> SurfelMap:
+    """The texel fuse's map update, in three disjoint write classes:
+
+    * elementwise: the age and zero-confidence kills on every slot
+      (copy_unstable.vert:118-122), with stable surfels outside the update
+      window always retained;
+    * write-back: a slot whose texel it won was updated or window-killed
+      takes the merged attributes (converted to world) or dies.  It runs
+      surfel-major: each slot reads its own texel through the projection
+      `local` that produced the render and takes the row iff it is that
+      texel's winner;
+    * insert: new unstable surfels append at the `used` high-water mark.
+
+    Write-back targets are render winners (valid, in [0, used)); inserts
+    go to [used, capacity)."""
+    fus = config.fusion
+    cam = config.camera
+    F = fus.index_factor
+    rows4, cols4 = cam.height * F, cam.width * F
+    tickf = tick.to(torch.float32)
+    cap = smap.capacity
+
+    too_old_unstable = (((tickf - smap.last_time) > fus.clean_unstable_age)
+                        & (smap.conf < fus.clean_unstable_conf))
+    keep_elem = smap.valid & ~(too_old_unstable | (smap.conf == 0.0))
+    stale_stable = (smap.last_time > 0) & \
+        ((tickf - smap.last_time) > fus.time_delta)
+    keep_elem = (keep_elem | (smap.valid & stale_stable)) & smap.valid
+
+    wb = merged.has & (upd_has | kill_tex)
+    inb = ((local.u4 >= 0) & (local.u4 < cols4)
+           & (local.v4 >= 0) & (local.v4 < rows4))
+    fi = (torch.clamp(local.v4, 0, rows4 - 1) * cols4
+          + torch.clamp(local.u4, 0, cols4 - 1))
+    tab = torch.stack([
+        merged.x, merged.y, merged.z, merged.conf, merged.r, merged.g,
+        merged.b, merged.hist, merged.init_time, merged.last_time,
+        merged.nx, merged.ny, merged.nz, merged.radius,
+        kill_tex.to(torch.float32)], dim=-1).reshape(-1, 15)
+    g = tab[fi]                                              # (cap, 15)
+    writer = torch.where(wb, merged.idx,
+                         torch.full_like(merged.idx, -1)).reshape(-1)[fi]
+    take = inb & (writer == torch.arange(cap, device=writer.device))
+
+    R, t = pose[:3, :3], pose[:3, 3]
+    t3 = take[:, None]
+    sel = lambda i, old: torch.where(take, g[:, i], old)
+    rows = torch.cat([
+        torch.where(t3, g[:, 0:3] @ R.T + t, smap.pos),
+        sel(3, smap.conf)[:, None],
+        torch.where(t3, g[:, 4:7], smap.color),
+        sel(7, smap.hist)[:, None], sel(8, smap.init_time)[:, None],
+        sel(9, smap.last_time)[:, None],
+        torch.where(t3, g[:, 10:13] @ R.T, smap.normal),
+        sel(13, smap.radius)[:, None]], dim=1)
+    keep = torch.where(take, g[:, 14] < 0.5, keep_elem)
+    return append_at_watermark(rows, keep, smap.used, new, tickf)

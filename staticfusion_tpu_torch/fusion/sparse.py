@@ -23,10 +23,10 @@ from staticfusion_tpu_torch.fusion.association import (NewSurfels,
                                                        _neighbours_ok,
                                                        _new_surfels,
                                                        active_subgrid)
-from staticfusion_tpu_torch.fusion.surfels import (SurfelMap, frame_cloud,
-                                                   pack_rows,
-                                                   radial_confidence,
-                                                   unpack_rows)
+from staticfusion_tpu_torch.fusion.surfels import (SurfelMap,
+                                                   append_at_watermark,
+                                                   frame_cloud, pack_rows,
+                                                   radial_confidence)
 from staticfusion_tpu_torch.fusion.texelmap import (INT_MAX, INVALID,
                                                     SurfelsLocal, id_bits_for,
                                                     packed_keys, render_cull,
@@ -198,7 +198,6 @@ def lifecycle_and_insert(smap: SurfelMap, killed: torch.Tensor,
     """Elementwise lifecycle (copy_unstable.vert:118-124), the window-kill
     verdicts, and the new-unstable append at the high-water mark."""
     fus = config.fusion
-    dev = smap.pos.device
     tickf = tick.to(torch.float32)
     keep = smap.valid & ~killed
     too_old_unstable = (((tickf - smap.last_time) > fus.clean_unstable_age)
@@ -207,26 +206,4 @@ def lifecycle_and_insert(smap: SurfelMap, killed: torch.Tensor,
     stale_stable = (smap.last_time > 0) & \
         ((tickf - smap.last_time) > fus.time_delta)
     keep = (keep | (smap.valid & stale_stable)) & smap.valid
-
-    max_new = new.is_new.shape[0]
-    cap = smap.capacity
-    rank = torch.cumsum(new.is_new.to(torch.int64), dim=0) - 1
-    slot = smap.used.to(torch.int64) + rank
-    ins = new.is_new & (slot < cap)
-    tgt_ins = torch.where(ins, slot, torch.full_like(slot, cap))
-    n_new = rank[-1] + 1 if max_new > 0 else torch.zeros((), device=dev)
-    used = torch.clamp(smap.used + n_new, max=cap).to(torch.int32)
-
-    col = lambda a: a[:, None]
-    tick_col = tickf.expand(max_new, 1)
-    payload_ins = torch.cat([
-        new.pos, col(new.conf), new.color, torch.ones((max_new, 1),
-                                                      device=dev),
-        tick_col, tick_col, new.normal, col(new.radius),
-        col(ins.to(torch.float32))], dim=1)
-    out = torch.cat([torch.cat([pack_rows(smap),
-                                col(keep.to(torch.float32))], dim=1),
-                     torch.zeros((1, 15), device=dev)])
-    out.index_copy_(0, tgt_ins, payload_ins)
-    out = out[:cap]
-    return unpack_rows(out[:, :14], out[:, 14] > 0.5, used)
+    return append_at_watermark(pack_rows(smap), keep, smap.used, new, tickf)

@@ -53,6 +53,38 @@ def unpack_rows(out: torch.Tensor, valid: torch.Tensor,
                      radius=out[:, 13], valid=valid, used=used)
 
 
+def append_at_watermark(rows: torch.Tensor, keep: torch.Tensor,
+                        used: torch.Tensor, new, tickf: torch.Tensor
+                        ) -> SurfelMap:
+    """The map of `rows` ((N, 14), pack_rows layout) with validity `keep`,
+    plus the new unstable surfels of `new` (a NewSurfels) appended at the
+    high-water mark `used` (the reference appends at its transform-feedback
+    count, GlobalModel.cpp:577-581); those past the capacity drop."""
+    dev = rows.device
+    cap = rows.shape[0]
+    max_new = new.is_new.shape[0]
+    rank = torch.cumsum(new.is_new.to(torch.int64), dim=0) - 1
+    slot = used.to(torch.int64) + rank
+    ins = new.is_new & (slot < cap)
+    tgt_ins = torch.where(ins, slot, torch.full_like(slot, cap))
+    n_new = rank[-1] + 1 if max_new > 0 else torch.zeros((), device=dev)
+    used = torch.clamp(used + n_new, max=cap).to(torch.int32)
+
+    col = lambda a: a[:, None]
+    tick_col = tickf.expand(max_new, 1)
+    payload_ins = torch.cat([
+        new.pos, col(new.conf), new.color, torch.ones((max_new, 1),
+                                                      device=dev),
+        tick_col, tick_col, new.normal, col(new.radius),
+        col(ins.to(torch.float32))], dim=1)
+    # Row `cap` is the sentinel of the rows that do not insert.
+    out = torch.cat([torch.cat([rows, col(keep.to(torch.float32))], dim=1),
+                     torch.zeros((1, 15), device=dev)])
+    out.index_copy_(0, tgt_ins, payload_ins)
+    out = out[:cap]
+    return unpack_rows(out[:, :14], out[:, 14] > 0.5, used)
+
+
 def empty_map(capacity: int, device=None) -> SurfelMap:
     z3 = torch.zeros((capacity, 3), device=device)
     z1 = torch.zeros((capacity,), device=device)

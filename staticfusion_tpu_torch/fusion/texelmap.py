@@ -34,8 +34,10 @@ _COORD_CLAMP = float(1 << 30)
 def id_bits_for(capacity: int) -> int:
     b = max(1, math.ceil(math.log2(capacity + 1)))
     if b > PACKED_MAX_ID_BITS:
-        raise ValueError(f"capacity {capacity} needs {b} id bits; the packed "
-                         f"z-buffer supports at most {PACKED_MAX_ID_BITS}")
+        raise NotImplementedError(
+            f"capacity {capacity} needs {b} id bits: the packed z-buffer "
+            f"holds at most {PACKED_MAX_ID_BITS}, and the two-pass z-buffer "
+            f"above 2^{PACKED_MAX_ID_BITS} - 1 surfels is not ported")
     return b
 
 

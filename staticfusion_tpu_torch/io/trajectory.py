@@ -1,16 +1,34 @@
-"""ATE evaluator (the part of staticfusion_tpu/io/trajectory.py that
-SlamSystem.ate needs).
+"""TUM-format trajectory export and an ATE evaluator (the parts of
+staticfusion_tpu/io/trajectory.py that SlamSystem.write_trajectory and
+SlamSystem.ate need).
 
-The reference delegates ATE to the TUM online service (README.md:65); this
-evaluates locally with Horn/Umeyama alignment so the accuracy check runs
-offline.
+The reference writes TUM-format trajectories (Utils/Datasets.cpp:252-266)
+and delegates ATE to the TUM online service (README.md:65); this evaluates
+locally with Horn/Umeyama alignment so the accuracy check runs offline.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def pose_to_tum_line(timestamp: float, pose: np.ndarray) -> str:
+    """TUM line: t tx ty tz qx qy qz qw (Datasets.cpp:252-266)."""
+    from scipy.spatial.transform import Rotation
+
+    t = pose[:3, 3]
+    q = Rotation.from_matrix(pose[:3, :3].astype(np.float64)).as_quat()
+    return (f"{timestamp:.4f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+            f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+
+
+def write_tum_trajectory(path: str, times: Sequence[float],
+                         poses: Sequence[np.ndarray]) -> None:
+    with open(path, "w") as f:
+        for t, p in zip(times, poses):
+            f.write(pose_to_tum_line(t, np.asarray(p)) + "\n")
 
 
 def associate_by_time(t_a: np.ndarray, t_b: np.ndarray,

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-`load()` compiles every `csrc/*.cu` of this checkout with nvcc (one
+`load()` compiles every `csrc/*.cu` of the package with nvcc (one
 process per source, in parallel) into one shared library with a plain C
-interface, at first use, into
-`build/torch_kernels/` at the repository root, and loads it with ctypes.
-The library's name carries a hash of the sources, so an edited source
-rebuilds and an unchanged one loads the existing file.  A failed build
-raises with nvcc's output.
+interface, at first use, and loads it with ctypes.  The library goes to
+`build/torch_kernels/` at the repository root when the package sits in a
+checkout whose root is writable; an installed package (or a read-only
+checkout) builds into the per-user cache directory
+`$XDG_CACHE_HOME/staticfusion_tpu_torch/kernels` (`~/.cache` when the
+variable is unset).  The library's name carries a hash of the sources, so
+an edited source rebuilds and an unchanged one loads the existing file.
+A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -16,10 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# The repository root, when the package sits in a checkout.
+REPO_ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -58,8 +64,34 @@ def _nvcc() -> str:
                        "use")
 
 
+def user_cache_dir() -> Path:
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(base) / "staticfusion_tpu_torch" / "kernels"
+
+
+def _writable(d: Path) -> bool:
+    """True when `d` exists or can be made, and a file can be created in
+    it (tried, not inferred from the mode bits)."""
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=d):
+            pass
+    except OSError:
+        return False
+    return True
+
+
+def build_dir() -> Path:
+    """`BUILD_DIR` in a checkout (a `pyproject.toml` at the repository
+    root) that is writable, else the per-user cache directory."""
+    if (REPO_ROOT / "pyproject.toml").is_file() and _writable(BUILD_DIR):
+        return BUILD_DIR
+    return user_cache_dir()
+
+
 def library_path() -> Path:
-    return BUILD_DIR / f"libsf_kernels_{source_hash()}.so"
+    return build_dir() / f"libsf_kernels_{source_hash()}.so"
 
 
 def _run_all(cmds) -> None:
@@ -83,11 +115,14 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.tmp{os.getpid()}"
     srcs = sorted(CSRC.glob("*.cu"))
-    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
-    tmp = BUILD_DIR / f"{tag}.so"
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC}: the package was "
+                           "installed without its csrc/ package data")
+    objs = [out.parent / f"{tag}.{p.stem}.o" for p in srcs]
+    tmp = out.parent / f"{tag}.so"
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
                   for p, o in zip(srcs, objs)])

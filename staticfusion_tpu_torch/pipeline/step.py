@@ -77,11 +77,17 @@ def bootstrap_step(frame0: Frame, frame1: Frame, initial_pose: torch.Tensor,
     raw_m, filt_m = _preprocess(frame1, config)
     pose = initial_pose @ sol.T_odometry
     # The initial map is sized at the pixel count; the host grows it in
-    # tiers as it fills (SlamSystem._maybe_resize_map).
+    # tiers as it fills (SlamSystem._maybe_resize_map).  Under routed
+    # fusion the map is made from the routed grid, at the steady state's
+    # surfel density.
+    rf = backend.effective_route_factor(config)
+    cfg_map = backend.routed_config(config, rf) if rf > 1 else config
+    pick = lambda a: a[::rf, ::rf]
     cap0 = min(config.fusion.capacity,
-               surfels.next_tier(frame1.depth_mm.numel()))
-    smap = surfels.initialise_map(cap0, raw_m, filt_m, frame1.rgb,
-                                  static_prob, pose, config)
+               surfels.next_tier(pick(frame1.depth_mm).numel()))
+    smap = surfels.initialise_map(cap0, pick(raw_m), pick(filt_m),
+                                  pick(frame1.rgb), pick(static_prob), pose,
+                                  cfg_map)
     rings = _store_ring(state.rings, 0, depth0, intens0,
                         torch.eye(4, device=dev))
     rings = _store_ring(rings, 1, depth1, intens1, sol.T_odometry)

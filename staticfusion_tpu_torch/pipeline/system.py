@@ -1,16 +1,18 @@
-"""Host-side SLAM driver (port of the per-frame path of
-staticfusion_tpu/pipeline/system.py).
+"""The host side of the SLAM system (port of
+staticfusion_tpu/pipeline/system.py without loop closure).
 
-The device holds all state; the host uploads the frame and keeps poses as
-device tensors until they are read.  The map is re-tiered every
-`resize_check_interval` frames, the only scheduled host read of the map
-(besides the solver's per-level exit flag).  Loop closure, batch
-processing and fixed tiers are not ported.
+The device holds all state; the host uploads the frame and keeps poses and
+per-frame scalars as device tensors until they are read.  The map is
+re-tiered every `resize_check_interval` frames, the only scheduled host
+read of the map (besides the solver's per-level exit flag).  Loop closure
+raises, and the JAX package's TPU workarounds (fixed tiers, executable
+cache clearing) are not carried over.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +25,16 @@ from staticfusion_tpu_torch.io import trajectory as traj_io
 from staticfusion_tpu_torch.pipeline.state import entry_device
 from staticfusion_tpu_torch.pipeline.step import (Frame, StepOutputs,
                                                   bootstrap_step, slam_step)
+
+
+class FrameRecord(NamedTuple):
+    """The per-frame scalars behind `SlamSystem.metrics` (device tensors
+    until read).  Only the scalars are kept: a frame's StepOutputs would
+    hold its images on the device for the whole run."""
+    timestamp: float
+    surfel_count: torch.Tensor
+    dense: torch.Tensor
+    ddt_sum: torch.Tensor
 
 
 class SlamSystem:
@@ -44,6 +56,15 @@ class SlamSystem:
                              if initial_pose is None else initial_pose)
         self.times: List[float] = []
         self.poses: List = []  # device tensors until materialised
+        self.ddt_sums: List = []  # per-frame sum(ddt), device scalars
+        # A constant post-multiplied into every exported or evaluated pose
+        # (rawlog runs set ROTATE_BY_Z so trajectories land in the raw TUM
+        # ground-truth frame); applied once, when the poses are read.
+        self.pose_postmultiply: Optional[np.ndarray] = None
+        self._pending_metrics: List[FrameRecord] = []
+        # Host seconds per frame (no sync at its end: device work still
+        # queued may fall into the next frame's time).
+        self.frame_seconds: List[float] = []
         # Map tiering: every `resize_check_interval` frames read the live
         # count and repack into the smallest tier with headroom, so
         # per-surfel passes scale with the live map.  The repack renumbers
@@ -124,8 +145,16 @@ class SlamSystem:
             depth_mm=torch.as_tensor(np.asarray(depth_mm, np.float32),
                                      device=self.device))
 
+    def _record(self, timestamp: float, out: StepOutputs) -> None:
+        self.times.append(timestamp)
+        self.poses.append(out.curr_pose)
+        self.ddt_sums.append(out.ddt_sum)
+        self._pending_metrics.append(FrameRecord(
+            timestamp, out.surfel_count, out.dense, out.ddt_sum))
+
     def process(self, rgb: np.ndarray, depth_mm: np.ndarray,
                 timestamp: float) -> Optional[StepOutputs]:
+        t0 = time.perf_counter()
         frame = self._to_frame(rgb, depth_mm)
         if self.state is None and self._pending is None:
             self._pending = frame
@@ -139,17 +168,73 @@ class SlamSystem:
         else:
             self.state, out = slam_step(self.state, frame, self.config)
         self._maybe_resize_map()
-        self.times.append(timestamp)
-        self.poses.append(out.curr_pose)
+        self._record(timestamp, out)
+        self.frame_seconds.append(time.perf_counter() - t0)
         return out
+
+    def process_batch(self, rgbs, depth_mms, timestamps,
+                      collect_prob: bool = False) -> Optional[torch.Tensor]:
+        """Bootstrap through `process`, then the rest in chunks of
+        `resize_check_interval` frames with the map's tier check after
+        every chunk, on the schedule of the JAX package's batch path (its
+        chunks are one `lax.scan` each; here a loop over `slam_step`).
+        The schedule is part of the results: a repack renumbers surfels
+        and z-buffer ties depend on the numbering.
+
+        Returns the stacked static-probability images of the processed
+        frames (n - 1, H, W) when `collect_prob`, else None."""
+        n = len(timestamps)
+        probs = [] if collect_prob else None
+        i = 0
+        while i < n and self.state is None:
+            out = self.process(rgbs[i], depth_mms[i], timestamps[i])
+            if collect_prob and out is not None:
+                probs.append(out.static_prob[None])
+            i += 1
+        chunk = self.resize_check_interval
+        while i < n:
+            k = min(chunk, n - i)
+            t0 = time.perf_counter()
+            for j in range(i, i + k):
+                self.state, out = slam_step(
+                    self.state, self._to_frame(rgbs[j], depth_mms[j]),
+                    self.config)
+                self._record(timestamps[j], out)
+                if collect_prob:
+                    probs.append(out.static_prob[None])
+            self.frame_seconds.extend([(time.perf_counter() - t0) / k] * k)
+            i += k
+            self._frames_since_resize_check = self.resize_check_interval
+            self._maybe_resize_map()
+        return torch.cat(probs) if probs else None
 
     def block(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @property
+    def metrics(self) -> List[dict]:
+        return [{"timestamp": r.timestamp, "surfels": int(r.surfel_count),
+                 "dense": bool(r.dense), "ddt_sum": float(r.ddt_sum)}
+                for r in self._pending_metrics]
+
     def _materialize_poses(self):
         self.poses = [np.asarray(p.cpu() if isinstance(p, torch.Tensor)
                                  else p) for p in self.poses]
+        if self.pose_postmultiply is not None:
+            M = np.asarray(self.pose_postmultiply, np.float32)
+            self.poses = [p @ M for p in self.poses]
+            self.pose_postmultiply = None  # applied exactly once
+
+    def write_trajectory(self, path: str) -> None:
+        """TUM-format export.  Frames whose depth-residual sum is exactly
+        zero are skipped, as the reference's writeTrajectoryFile does
+        (Utils/Datasets.cpp:252-266): a zero ddt image means the solver saw
+        a repeated or empty depth frame."""
+        self._materialize_poses()
+        keep = [i for i, d in enumerate(self.ddt_sums) if float(d) != 0.0]
+        traj_io.write_tum_trajectory(path, [self.times[i] for i in keep],
+                                     [self.poses[i] for i in keep])
 
     def ate(self, gt_times: np.ndarray, gt_poses: np.ndarray,
             max_dt: float = 0.05) -> float:

@@ -165,3 +165,70 @@ def test_kernel_build_starts_one_compiler_per_source(tmp_path, monkeypatch):
     assert len(links) == 1 and "-shared" in links[0].split()
     assert sorted(w for w in links[0].split() if w.endswith(".o")) == compiles
     assert sorted(p.name for p in lib.parent.iterdir()) == [lib.name]
+
+
+def test_csrc_is_declared_package_data():
+    """pyproject.toml ships every csrc/*.cu and *.cuh with the package, so
+    an installed port can build its kernels."""
+    import fnmatch
+    import tomllib
+
+    meta = tomllib.loads((REPO / "pyproject.toml").read_text())
+    tool = meta["tool"]["setuptools"]
+    assert "staticfusion_tpu_torch" in tool["packages"]
+    globs = tool["package-data"]["staticfusion_tpu_torch"]
+    assert sorted(globs) == ["csrc/*.cu", "csrc/*.cuh"]
+    sources = [p.relative_to(PKG).as_posix()
+               for p in (PKG / "csrc").iterdir()]
+    assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs)
+                           for s in sources)
+
+
+@pytest.mark.parametrize("where", ["read_only_checkout", "installed"])
+def test_kernel_build_falls_back_to_the_user_cache(where, tmp_path,
+                                                   monkeypatch):
+    """Outside a writable checkout (its build/ cannot be made, or the
+    package sits in site-packages with no pyproject.toml above it) the
+    library is built into $XDG_CACHE_HOME/staticfusion_tpu_torch/kernels
+    (a stub compiler stands in for nvcc)."""
+    from staticfusion_tpu_torch.kernels import _build
+
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    log = tmp_path / "calls.log"
+    stub = tmp_path / "cuda" / "bin" / "nvcc"
+    stub.parent.mkdir(parents=True)
+    stub.write_text(_STUB_NVCC.format(log=log, n=len(srcs)))
+    stub.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    if where == "read_only_checkout":
+        blocker = tmp_path / "checkout"
+        blocker.write_text("a file, so no directory can be made under it")
+        monkeypatch.setattr(_build, "BUILD_DIR", blocker / "build")
+    else:
+        site = tmp_path / "site-packages"
+        site.mkdir()
+        monkeypatch.setattr(_build, "REPO_ROOT", site)
+        monkeypatch.setattr(_build, "BUILD_DIR", site / "build")
+
+    cache = tmp_path / "cache" / "staticfusion_tpu_torch" / "kernels"
+    assert _build.build_dir() == cache
+    lib = _build.build()
+    assert lib.parent == cache and lib.exists()
+    assert lib == _build.library_path()
+    assert not (tmp_path / "site-packages" / "build").exists()
+
+
+def test_kernel_build_failure_raises_with_the_compiler_output(tmp_path,
+                                                              monkeypatch):
+    from staticfusion_tpu_torch.kernels import _build
+
+    stub = tmp_path / "cuda" / "bin" / "nvcc"
+    stub.parent.mkdir(parents=True)
+    stub.write_text("#!/bin/sh\necho 'error: no such intrinsic'\nexit 2\n")
+    stub.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.build()
+    assert not _build.library_path().exists()
