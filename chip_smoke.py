@@ -31,22 +31,40 @@ Phases (each prints one line; any failure exits non-zero):
      default, routed VGA at F=1, fast_rot and static at F=1); per gate ATE,
      IoU, median ms/frame and launches per frame (the counts set to 0
      before each gate and read after it); the generator's time first;
-  7. profile: torch.profiler counts the device kernels of one K3 call
+  7. app: the dataset path. apps/make_synthetic_dataset.py writes a
+     30-frame 640x480 TUM-layout dataset (PNG, depth at 5000/m) to a
+     temporary directory; the native zlib decoder (csrc/io, built by g++)
+     must return every frame's arrays exactly; `run_tum` runs it on the
+     card at --res-factor 2 (the shipped default config) with --ply,
+     --metrics and --checkpoint: ATE, the PLY's vertex count against the
+     checkpointed map above the threshold, one metrics row per frame; a
+     run stopped after frame 16 with --checkpoint, then --resume over
+     frames 17..29, must match the uninterrupted run (poses within 1e-5,
+     equal surfel counts per frame).  Per run: median ms/frame (CUDA
+     events around slam_step, frames 3..29), for run_tum also the app's
+     wall ms/frame (host time from one step's start to the next's, so
+     PNG decode and the per-frame host read included) and the run's
+     seconds, and the kernel launches (the counts set to 0 before each
+     run and read after it);
+  8. profile: torch.profiler counts the device kernels of one K3 call
      at each level size and of one K1 call (exactly one each) and their
      device times, and the device kernels and busy time per main-path
      frame over 3 more frames.  Last, because a profiler run before the
      main path coincided with slower frames;
 then the script's total time, a JSON line with the kernels (their
-launches on the main path and in each gate), and last a JSON line
+launches on the main path, in each gate and in each app run), and last a
+JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +90,10 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # level 0 (the routed VGA gate's largest solve).
 LEVEL_SIZES = (76800, 19200, 4800, 1200, 300)
 VGA_N = 307200
+# The app phase: frames of its 640x480 dataset, and the frame its resumed
+# run starts at (the first run stops after frame APP_SPLIT - 1).
+APP_FRAMES = 30
+APP_SPLIT = 17
 # tests/test_accuracy.py's gates: (name, profile, width, height, capacity,
 # index_factor, frames, ATE limit, IoU floor or None).  Seed 0.
 GATES = (
@@ -651,6 +673,35 @@ def phase_profile(k1, k3, systems, main_run):
           f"ms/frame", flush=True)
 
 
+@contextlib.contextmanager
+def timed_slam_step(host_starts=None):
+    """Time every slam_step that SlamSystem runs with CUDA events; yields
+    the list of (start, end) event pairs, one per step.  A list given as
+    `host_starts` gets the host clock (s) at the start of every step."""
+    import torch
+
+    import staticfusion_tpu_torch.pipeline.system as system_mod
+    step = system_mod.slam_step
+    events = []
+
+    def timed_step(state, frame, config):
+        if host_starts is not None:
+            host_starts.append(time.perf_counter())
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, frame, config)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    system_mod.slam_step = timed_step
+    try:
+        yield events
+    finally:
+        system_mod.slam_step = step
+
+
 def phase_gates(card):
     """tests/test_accuracy.py's five gates through the port on the card.
     Each walk_xyz QVGA sequence is rendered once and serves both walk
@@ -676,22 +727,9 @@ def phase_gates(card):
           f"({sum(len(f) for f, _ in sequences.values())} frames) in "
           f"{gen_s:.1f} s on the host", flush=True)
 
-    step = system_mod.slam_step
-    events = []
-
-    def timed_step(state, frame, config):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = step(state, frame, config)
-        e1.record()
-        events.append((e0, e1))
-        return out
-
     counters = _counters()
     results = {}
-    system_mod.slam_step = timed_step
-    try:
+    with timed_slam_step() as events:
         for name, profile, w, h, cap, factor, n, ate_max, iou_min in GATES:
             config = SFConfig(camera=CameraConfig(width=w, height=h),
                               fusion=FusionConfig(capacity=cap,
@@ -744,8 +782,6 @@ def phase_gates(card):
                       f"{k} {v / n:.3f}" for k, v in launches.items())
                   + f"; surfels {slam.total_surfels()} "
                   f"{'ok' if ok else 'FAILED'}", flush=True)
-    finally:
-        system_mod.slam_step = step
     failed = [k for k, v in results.items() if not v["ok"]]
     check(not failed, f"gates failed: {failed}")
     print(f"[gates] ok: all {len(GATES)} gates of tests/test_accuracy.py "
@@ -783,6 +819,169 @@ def phase_cross():
           f"{worst_count:.4%}", flush=True)
 
 
+def _app_run(argv, counters):
+    """One run of an app's main(argv) with the launch counts set to 0
+    before it: -> (launches, per-step ms, per-frame wall ms, seconds).
+    The wall ms of a frame is the host time from one step's start to the
+    next's: the step, the app's per-frame host read and metrics row, and
+    the next frame's PNG decode."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    starts = []
+    with timed_slam_step(starts) as events:
+        t0 = time.perf_counter()
+        argv[0](argv[1:])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    return ({k: fn.launches for k, fn in counters.items()},
+            [e0.elapsed_time(e1) for e0, e1 in events],
+            [1e3 * (b - a) for a, b in zip(starts, starts[1:])], run_s)
+
+
+def _app_launch_check(tag, launches, n):
+    check(launches["preprocess_depth"] >= n - 1,
+          f"{tag}: K1 launched {launches['preprocess_depth']} times")
+    check(launches["irls_solve"] >= n - 1,
+          f"{tag}: K3 launched {launches['irls_solve']} times")
+    check(launches["spd_solve"] == 0 and launches["spd_inverse"] == 0,
+          f"{tag}: K2 launched standalone: {launches}")
+
+
+def phase_app(card):
+    """The dataset path through the port's apps on the card (phase 7 of
+    the module docstring).  Returns {run: launches}."""
+    from staticfusion_tpu_torch.apps import make_synthetic_dataset as mkdata
+    from staticfusion_tpu_torch.apps import run_sequence, run_tum
+    from staticfusion_tpu_torch.config import CameraConfig, SFConfig
+    from staticfusion_tpu_torch.io import native, synthetic
+    from staticfusion_tpu_torch.io.ply import load_ply_count
+    from staticfusion_tpu_torch.io.tum import load_assoc
+    from staticfusion_tpu_torch.utils import checkpoint
+    counters = _counters()
+    n, split = APP_FRAMES, APP_SPLIT
+    with tempfile.TemporaryDirectory(prefix="sf_app_") as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        cfg = SFConfig(camera=CameraConfig(width=640, height=480))
+        frames, poses = synthetic.make_sequence(cfg, n, mkdata.TWIST)
+        mkdata.write_dataset(data, frames, poses)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib = native.build()
+        build_s = time.perf_counter() - t0
+        entries = load_assoc(data)
+        for i, (e, (rgb, depth_mm, _)) in enumerate(zip(entries, frames)):
+            want_rgb, want_depth = mkdata.encode_frame(rgb, depth_mm)
+            for path, want in ((e.rgb_path, want_rgb),
+                               (e.depth_path, want_depth)):
+                got = native.decode_png(path)
+                check(got is not None and got.dtype == want.dtype
+                      and np.array_equal(got, want),
+                      f"app: frame {i}: {path} does not decode to the "
+                      "arrays it was written from")
+        print(f"[app] dataset: {n} frames 640x480 (PNG, depth 5000/m) "
+              f"written in {write_s:.2f} s; the native decoder "
+              f"({os.path.relpath(lib)}, g++ {build_s:.1f} s) returns every "
+              f"frame's arrays exactly", flush=True)
+
+        # run_tum: the trajectory goes to ./odometry_results/ under tmp.
+        out = {k: os.path.join(tmp, v) for k, v in (
+            ("ply", "map.ply"), ("metrics", "full.jsonl"),
+            ("ckpt", "full.npz"), ("a", "a.npz"), ("b", "b.npz"),
+            ("b_traj", "b.txt"), ("b_metrics", "b.jsonl"),
+            ("a_traj", "a.txt"), ("rest", "rest_assoc.txt"))}
+        with contextlib.chdir(tmp):
+            launches, ms, wall, run_s = _app_run(
+                [run_tum.main, data, "--res-factor", "2", "--ply",
+                 out["ply"], "--metrics", out["metrics"], "--checkpoint",
+                 out["ckpt"]], counters)
+        traj = os.path.join(tmp, "odometry_results", "experiment_000.txt")
+        check(os.path.isfile(traj), "app: run_tum wrote no "
+              "odometry_results/experiment_000.txt")
+        _app_launch_check("app run_tum", launches, n)
+        rows = [json.loads(line) for line in open(out["metrics"])]
+        frame_rows = [r for r in rows if "frame" in r]
+        check([r["frame"] for r in frame_rows] == list(range(1, n)),
+              f"app: metrics rows for frames "
+              f"{[r['frame'] for r in frame_rows]}, expected 1..{n - 1}")
+        ate, rpe = rows[-1].get("ate_rmse"), rows[-1].get("rpe_rmse")
+        check(ate is not None and np.isfinite(ate) and ate < ATE_LIMIT,
+              f"app: run_tum ATE {ate} m >= {ATE_LIMIT}")
+        thr = SFConfig().fusion.confidence_threshold
+        state = checkpoint.load_state(out["ckpt"])
+        archive = checkpoint.load_archive(out["ckpt"])
+        above = sum(int(((m.conf > thr) & m.valid).sum())
+                    for m in (state.smap, archive) if m is not None)
+        n_ply = load_ply_count(out["ply"])
+        check(n_ply == above, f"app: PLY has {n_ply} vertices, the map "
+              f"{above} above {thr}")
+        check(int(state.tick) == n, f"app: checkpoint tick {int(state.tick)}")
+        med = float(np.median(ms[1:]))
+        check(len(ms) == n - 2 and len(wall) == n - 3,
+              f"app: {len(ms)} steps, {len(wall)} step-to-step times")
+        wall_med = float(np.median(wall[1:]))
+        print(f"  run_tum (QVGA F=4 post 2, --res-factor 2): {n - 1} poses, "
+              f"ATE {ate:.5f} m (< {ATE_LIMIT}), RPE {rpe:.5f} m, PLY "
+              f"{n_ply} vertices = checkpointed map above {thr}, "
+              f"{len(frame_rows)} metrics rows for frames 1..{n - 1}; step "
+              f"median {med:.3f} ms/frame over frames 3..{n - 1} (min "
+              f"{min(ms[1:]):.3f}, max {max(ms[1:]):.3f}); app wall median "
+              f"{wall_med:.3f} ms/frame, step start to step start from "
+              f"frames 3..{n - 2} (min {min(wall[1:]):.3f}, max "
+              f"{max(wall[1:]):.3f}); run {run_s:.3f} s for {n} frames "
+              f"({1e3 * run_s / n:.3f} ms/frame with set-up, PLY and "
+              f"checkpoint); launches K1 {launches['preprocess_depth']}, K3 "
+              f"{launches['irls_solve']}, K2 {launches['spd_solve']}; on "
+              f"{card}", flush=True)
+        results = {"app run_tum": launches}
+
+        # Stop after frame split - 1 with a checkpoint, resume over the rest.
+        seq = [run_sequence.main, data, "--res-factor", "2",
+               "--depth-scale", "5000"]
+        launches_a, _, _, _ = _app_run(
+            seq + ["--max-frames", str(split), "--out", out["a_traj"],
+                   "--checkpoint", out["a"], "--metrics", os.devnull],
+            counters)
+        with open(os.path.join(data, "rgbd_assoc.txt")) as f:
+            lines = f.read().splitlines()
+        with open(out["rest"], "w") as f:
+            f.write("\n".join(lines[split:]) + "\n")
+        launches_b, _, _, res_s = _app_run(
+            seq + ["--resume", out["a"], "--assoc", out["rest"], "--out",
+                   out["b_traj"], "--checkpoint", out["b"], "--metrics",
+                   out["b_metrics"]], counters)
+        _app_launch_check("app resume", launches_b, n - split)
+        from staticfusion_tpu_torch.io.trajectory import read_tum_trajectory
+        t_full, p_full = read_tum_trajectory(traj)
+        t_b, p_b = read_tum_trajectory(out["b_traj"])
+        check(len(t_b) == n - split and np.array_equal(
+            t_b, t_full[-(n - split):]), f"app: resumed run wrote {len(t_b)} "
+              f"poses, expected frames {split}..{n - 1}")
+        pose_diff = float(np.abs(p_b - p_full[-(n - split):]).max())
+        b_state = checkpoint.load_state(out["b"])
+        state_diff = float((b_state.curr_pose - state.curr_pose).abs().max())
+        check(max(pose_diff, state_diff) <= 1e-5,
+              f"app: resumed poses differ by {pose_diff} (final state "
+              f"{state_diff}) > 1e-5")
+        b_rows = [json.loads(line) for line in open(out["b_metrics"])]
+        got = [r["surfels"] for r in b_rows if "frame" in r]
+        want = [r["surfels"] for r in frame_rows[split - 1:]]
+        check(got == want, f"app: resumed surfel counts {got}, "
+              f"uninterrupted {want}")
+        print(f"  resume after frame {split - 1}: frames {split}..{n - 1} of "
+              f"the resumed run vs the uninterrupted run: max |pose diff| "
+              f"{pose_diff:.3e} (final state {state_diff:.3e}; <= 1e-5), "
+              f"surfel counts equal at every frame ({got[-1]} at the end); "
+              f"resumed run {res_s:.1f} s; launches K1 "
+              f"{launches_b['preprocess_depth']}, K3 "
+              f"{launches_b['irls_solve']}", flush=True)
+        results["app first part"] = launches_a
+        results["app resume"] = launches_b
+    print(f"[app] ok: run_tum and resume on {card}", flush=True)
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -811,8 +1010,11 @@ def main() -> int:
         launches, main_run = phase_main(card)
         phase_cross()
         gates = phase_gates(card)
+        gates.update({k: {"launches": v}
+                      for k, v in phase_app(card).items()})
         phase_profile(k1, k3, k3_systems, main_run)
-    except (SmokeError, AssertionError, RuntimeError, ValueError) as e:
+    except (SmokeError, AssertionError, RuntimeError, ValueError,
+            OSError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     csrc = "staticfusion_tpu_torch/csrc/"

@@ -1,6 +1,5 @@
-"""TUM-format trajectory export and an ATE evaluator (the parts of
-staticfusion_tpu/io/trajectory.py that SlamSystem.write_trajectory and
-SlamSystem.ate need).
+"""TUM-format trajectory export and import, and the ATE and RPE
+evaluators (port of staticfusion_tpu/io/trajectory.py).
 
 The reference writes TUM-format trajectories (Utils/Datasets.cpp:252-266)
 and delegates ATE to the TUM online service (README.md:65); this evaluates
@@ -29,6 +28,28 @@ def write_tum_trajectory(path: str, times: Sequence[float],
     with open(path, "w") as f:
         for t, p in zip(times, poses):
             f.write(pose_to_tum_line(t, np.asarray(p)) + "\n")
+
+
+def read_tum_trajectory(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (times (N,), poses (N,4,4))."""
+    from scipy.spatial.transform import Rotation
+
+    times, poses = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(x) for x in line.split()]
+            if len(vals) < 8:
+                continue
+            t, tx, ty, tz, qx, qy, qz, qw = vals[:8]
+            T = np.eye(4)
+            T[:3, :3] = Rotation.from_quat([qx, qy, qz, qw]).as_matrix()
+            T[:3, 3] = [tx, ty, tz]
+            times.append(t)
+            poses.append(T)
+    return np.asarray(times), np.asarray(poses)
 
 
 def associate_by_time(t_a: np.ndarray, t_b: np.ndarray,
@@ -75,3 +96,21 @@ def ate_rmse(est_times: np.ndarray, est_poses: np.ndarray,
     aligned = p_est @ T[:3, :3].T + T[:3, 3]
     err = aligned - p_gt
     return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))
+
+
+def rpe_rmse(est_times: np.ndarray, est_poses: np.ndarray,
+             gt_times: np.ndarray, gt_poses: np.ndarray,
+             delta: int = 1, max_dt: float = 0.02) -> float:
+    """Relative pose (translational drift) RMSE over `delta`-frame intervals."""
+    pairs = associate_by_time(est_times, gt_times, max_dt)
+    if len(pairs) < delta + 1:
+        return float("nan")
+    errs = []
+    for k in range(len(pairs) - delta):
+        i0, j0 = pairs[k]
+        i1, j1 = pairs[k + delta]
+        d_est = np.linalg.inv(est_poses[i0]) @ est_poses[i1]
+        d_gt = np.linalg.inv(gt_poses[j0]) @ gt_poses[j1]
+        e = np.linalg.inv(d_gt) @ d_est
+        errs.append(np.linalg.norm(e[:3, 3]))
+    return float(np.sqrt(np.mean(np.square(errs))))

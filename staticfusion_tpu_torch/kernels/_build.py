@@ -9,7 +9,9 @@ checkout) builds into the per-user cache directory
 `$XDG_CACHE_HOME/staticfusion_tpu_torch/kernels` (`~/.cache` when the
 variable is unset).  The library's name carries a hash of the sources, so
 an edited source rebuilds and an unchanged one loads the existing file.
-A failed build raises with nvcc's output.
+A failed build raises with nvcc's output.  `install` (a pid-tagged
+temporary file, then `os.replace`) and `build_dir` are shared with the
+native I/O library's build (`io/native.py`).
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(paths=None) -> str:
+    """Hash of the sources' names and bytes (default: the CUDA sources)."""
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources() if paths is None else paths:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -94,7 +97,7 @@ def library_path() -> Path:
     return build_dir() / f"libsf_kernels_{source_hash()}.so"
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds, tool: str = "nvcc") -> None:
     """Run the commands at once and wait for every one; raise with the
     output of those that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -106,32 +109,45 @@ def _run_all(cmds) -> None:
         if proc.returncode != 0:
             failed.append(" ".join(cmd) + "\n" + log)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError(f"{tool} failed:\n" + "\n".join(failed))
+
+
+def install(out: Path, make) -> Path:
+    """Build the library `out` unless it exists.  `make(tmp)` writes it to
+    `tmp`, a name tagged with this process's id in the same directory
+    (other files it makes carry the same tag, and it removes them), which
+    then replaces `out` in one `os.replace`: processes that build at once
+    never load a half-written file, and the last one's copy stays."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f"{out.stem}.tmp{os.getpid()}.so"
+    try:
+        make(tmp)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out
 
 
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
     per source, all started together, then one link."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{out.stem}.tmp{os.getpid()}"
-    srcs = sorted(CSRC.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC}: the package was "
-                           "installed without its csrc/ package data")
-    objs = [out.parent / f"{tag}.{p.stem}.o" for p in srcs]
-    tmp = out.parent / f"{tag}.so"
-    try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
-                  for p, o in zip(srcs, objs)])
-        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
-    finally:
-        for o in objs:
-            o.unlink(missing_ok=True)
-    os.replace(tmp, out)
-    return out
+    def make(tmp: Path) -> None:
+        srcs = sorted(CSRC.glob("*.cu"))
+        if not srcs:
+            raise RuntimeError(f"no CUDA sources in {CSRC}: the package was "
+                               "installed without its csrc/ package data")
+        nvcc = _nvcc()
+        objs = [tmp.parent / f"{tmp.stem}.{p.stem}.o" for p in srcs]
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                      for p, o in zip(srcs, objs)])
+            _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+    return install(library_path(), make)
 
 
 def load() -> ctypes.CDLL:

@@ -77,10 +77,11 @@ def entry_device(device) -> torch.device:
     return device
 
 
-def state_from_numpy(tree, device="cuda") -> SlamState:
-    """SlamState from any tree with the same field names whose leaves are
-    numpy arrays (e.g. a JAX SlamState mapped through np.asarray).  Float
-    leaves become float32, integer leaves int32, bool stays bool."""
+def state_from_numpy(tree, device="cuda", cls=SlamState):
+    """SlamState (or `cls`, one of its nested types such as SurfelMap) from
+    any tree with the same field names whose leaves are numpy arrays (e.g.
+    a JAX SlamState mapped through np.asarray).  Float leaves become
+    float32, integer leaves int32, bool stays bool."""
     device = entry_device(device)
 
     def leaf(a):
@@ -97,7 +98,21 @@ def state_from_numpy(tree, device="cuda") -> SlamState:
         return cls(**{f: (build(_NESTED[f], getattr(node, f))
                           if f in _NESTED else leaf(getattr(node, f)))
                       for f in cls._fields})
-    return build(SlamState, tree)
+    return build(cls, tree)
+
+
+def tree_from_leaves(cls, leaves):
+    """`cls` (SlamState or a nested type) from an iterator over its leaves
+    in the JAX package's `tree_flatten` order: fields in declaration
+    order, nested tuples depth first.  The leaves are taken as given."""
+    return cls(**{f: (tree_from_leaves(_NESTED[f], leaves) if f in _NESTED
+                      else next(leaves)) for f in cls._fields})
+
+
+def n_leaves(cls) -> int:
+    """The number of leaves of `cls` (SlamState or a nested type)."""
+    return sum(n_leaves(_NESTED[f]) if f in _NESTED else 1
+               for f in cls._fields)
 
 
 def state_to_numpy(state: SlamState) -> SlamState:

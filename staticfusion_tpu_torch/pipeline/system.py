@@ -242,3 +242,11 @@ class SlamSystem:
         return traj_io.ate_rmse(np.asarray(self.times),
                                 np.stack(self.poses), gt_times, gt_poses,
                                 max_dt=max_dt)
+
+    def rpe(self, gt_times: np.ndarray, gt_poses: np.ndarray,
+            delta: int = 1, max_dt: float = 0.05) -> float:
+        """Translational drift RMSE over `delta`-frame intervals."""
+        self._materialize_poses()
+        return traj_io.rpe_rmse(np.asarray(self.times),
+                                np.stack(self.poses), gt_times, gt_poses,
+                                delta=delta, max_dt=max_dt)

@@ -1,0 +1,216 @@
+"""The port's command-line apps on the CPU: the synthetic-dataset exporter
+against the JAX package's script, run_sequence end to end (trajectory,
+PLY, metrics, checkpoint, a torch.profiler trace), a resumed run against
+the uninterrupted one, a rawlog run, run_tum's defaults and result
+numbering, and the flags whose modules are not ported.
+
+8 frames written at 640x480 and run at 160x120 (--res-factor 4), map
+capacity 1<<15, `--device cpu`.  Everything is written under pytest's
+temporary directories (run_tum runs with that as its working directory);
+the native I/O library is built by g++ into one of them.
+"""
+
+import functools
+import json
+import os
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from staticfusion_tpu_torch.apps import (make_synthetic_dataset, run_sequence,
+                                         run_tum)
+from staticfusion_tpu_torch.config import FusionConfig
+from staticfusion_tpu_torch.io import native
+from staticfusion_tpu_torch.io.ply import load_ply_count
+from staticfusion_tpu_torch.io.trajectory import (ate_rmse,
+                                                  read_tum_trajectory)
+from staticfusion_tpu_torch.kernels import _build
+from staticfusion_tpu_torch.utils import checkpoint
+
+# The suite runs in parallel worker processes: a small intra-op pool per
+# worker keeps them from oversubscribing the host's cores.
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+N = 8
+SPLIT = 5        # the checkpointed run processes frames [0, SPLIT)
+CAPACITY = 1 << 15
+BASE = ["--res-factor", "4", "--depth-scale", "5000", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _small_map_and_no_jax_caches(monkeypatch):
+    """The apps build their config with FusionConfig(...): run them at a
+    1<<15 map.  Drop JAX's executables after every test."""
+    monkeypatch.setattr(run_sequence, "FusionConfig",
+                        functools.partial(FusionConfig, capacity=CAPACITY))
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def sfio(tmp_path_factory):
+    """The native I/O library, built into a temporary directory."""
+    root = tmp_path_factory.mktemp("sfio")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_build, "BUILD_DIR", root / "build")
+        mp.setenv("XDG_CACHE_HOME", str(root / "cache"))
+        native.load()
+        yield native
+
+
+@pytest.fixture(scope="module")
+def dataset(sfio, tmp_path_factory):
+    out = tmp_path_factory.mktemp("sfdata")
+    make_synthetic_dataset.main([str(out), "--frames", str(N)])
+    return out
+
+
+def test_exporter_writes_the_scripts_files(dataset, tmp_path, monkeypatch):
+    """The port's exporter and scripts/make_synthetic_dataset.py write the
+    same files, byte for byte."""
+    monkeypatch.syspath_prepend(str(REPO))
+    monkeypatch.setattr(sys, "argv", ["make_synthetic_dataset.py",
+                                      str(tmp_path), "--frames", str(N)])
+    from scripts.make_synthetic_dataset import main
+    main()
+    ours = sorted(p.relative_to(dataset) for p in dataset.rglob("*")
+                  if p.is_file())
+    theirs = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")
+                    if p.is_file())
+    assert ours == theirs and len(ours) == 2 * N + 2
+    for rel in ours:
+        assert (dataset / rel).read_bytes() == (tmp_path / rel).read_bytes()
+
+
+def _run(dataset, out, *extra):
+    """run_sequence into directory `out`; -> the paths it wrote."""
+    out.mkdir(exist_ok=True)
+    paths = {k: str(out / name) for k, name in (
+        ("traj", "traj.txt"), ("ply", "map.ply"),
+        ("metrics", "metrics.jsonl"), ("ckpt", "state.npz"))}
+    run_sequence.main([str(dataset), *BASE, "--out", paths["traj"],
+                       "--ply", paths["ply"], "--metrics", paths["metrics"],
+                       "--checkpoint", paths["ckpt"], "--conf-threshold",
+                       "0", *extra])
+    return paths
+
+
+@pytest.fixture(scope="module")
+def full_run(dataset, tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(run_sequence, "FusionConfig",
+                   functools.partial(FusionConfig, capacity=CAPACITY))
+        return _run(dataset, tmp_path_factory.mktemp("full"))
+
+
+def test_run_sequence_writes_its_outputs(dataset, full_run):
+    t, poses = read_tum_trajectory(full_run["traj"])
+    assert len(t) == N - 1     # frame 0 seeds the bootstrap
+    gt_t, gt = read_tum_trajectory(str(dataset / "groundtruth.txt"))
+    assert ate_rmse(t, poses, gt_t, gt) < 0.02
+    rows = [json.loads(line) for line in open(full_run["metrics"])]
+    frames = [r for r in rows if "frame" in r]
+    assert [r["frame"] for r in frames] == list(range(1, N))
+    assert all(r["surfels"] > 0 and r["fps"] > 0 for r in frames)
+    assert rows[-1]["ate_rmse"] < 0.02 and rows[-1]["rpe_rmse"] < 0.02
+    state = checkpoint.load_state(full_run["ckpt"], device="cpu")
+    assert int(state.tick) == N
+    assert checkpoint.load_config(full_run["ckpt"]).fusion.capacity == CAPACITY
+    assert load_ply_count(full_run["ply"]) == int(
+        ((state.smap.conf > 0) & state.smap.valid).sum())
+
+
+def test_resume_continues_from_the_same_tick(dataset, full_run, tmp_path,
+                                             capsys):
+    """A run over frames [0, SPLIT) with --checkpoint, then --resume over
+    the rest (an assoc file of frames SPLIT..N-1): the tick carries over
+    and the resumed poses and map equal the uninterrupted run's."""
+    first = _run(dataset, tmp_path / "a", "--max-frames", str(SPLIT))
+    assert int(checkpoint.load_state(first["ckpt"], device="cpu").tick) \
+        == SPLIT
+    lines = (dataset / "rgbd_assoc.txt").read_text().splitlines()
+    rest = tmp_path / "rest_assoc.txt"  # paths in it are the dataset's
+    rest.write_text("\n".join(lines[SPLIT:]) + "\n")
+    second = _run(dataset, tmp_path / "b", "--resume", first["ckpt"],
+                  "--assoc", str(rest))
+    assert f"(tick={SPLIT})" in capsys.readouterr().out
+    t_full, p_full = read_tum_trajectory(full_run["traj"])
+    t_res, p_res = read_tum_trajectory(second["traj"])
+    assert len(t_res) == N - SPLIT
+    np.testing.assert_array_equal(t_res, t_full[-(N - SPLIT):])
+    np.testing.assert_allclose(p_res, p_full[-(N - SPLIT):], atol=1e-5)
+    a = checkpoint.load_state(full_run["ckpt"], device="cpu")
+    b = checkpoint.load_state(second["ckpt"], device="cpu")
+    assert int(a.tick) == int(b.tick) == N
+    assert int(a.smap.count()) == int(b.smap.count())
+    assert load_ply_count(second["ply"]) == load_ply_count(full_run["ply"])
+
+
+def test_profile_writes_a_torch_trace(dataset, tmp_path):
+    run_sequence.main([str(dataset), *BASE, "--max-frames", "3",
+                       "--out", str(tmp_path / "t.txt"),
+                       "--profile", str(tmp_path / "prof")])
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]
+
+
+def test_run_tum_defaults_and_numbering(dataset, tmp_path, monkeypatch):
+    """run_tum sets --depth-scale 5000 and numbers its results
+    odometry_results/experiment_NNN.txt in the working directory."""
+    monkeypatch.chdir(tmp_path)
+    for _ in range(2):
+        run_tum.main([str(dataset), "--res-factor", "4", "--device", "cpu",
+                      "--max-frames", "4"])
+    res = sorted(os.listdir(tmp_path / "odometry_results"))
+    assert res == ["experiment_000.txt", "experiment_001.txt"]
+    t, poses = read_tum_trajectory(str(tmp_path / "odometry_results" /
+                                       res[1]))
+    gt_t, gt = read_tum_trajectory(str(dataset / "groundtruth.txt"))
+    assert len(t) == 3 and ate_rmse(t, poses, gt_t, gt) < 0.02
+    run_tum.main([str(dataset), "--res-factor", "4", "--device", "cpu",
+                  "--max-frames", "3", "--out", str(tmp_path / "x.txt")])
+    assert (tmp_path / "x.txt").exists()
+    assert len(os.listdir(tmp_path / "odometry_results")) == 2
+
+
+def test_rawlog_run_lands_in_the_raw_gt_frame(sfio, tmp_path):
+    """run_sequence on a rawlog: the 180-degree stored orientation, the
+    rotateByZ anchor and the rotateByZ export cancel, so the trajectory
+    compares against the raw TUM ground truth."""
+    from staticfusion_tpu_torch.config import CameraConfig, SFConfig
+    from staticfusion_tpu_torch.io import rawlog, synthetic
+    from staticfusion_tpu_torch.io.trajectory import pose_to_tum_line
+
+    cfg = SFConfig(camera=CameraConfig(width=640, height=480))
+    frames, gt = synthetic.make_sequence(cfg, 6, make_synthetic_dataset.TWIST)
+    ts = [1341840000.0 + i / 30.0 for i in range(6)]
+    path = str(tmp_path / "seq.rawlog")
+    rawlog.write_rawlog(path, [(r, d / 1000.0) for r, d, _ in frames], ts)
+    with open(tmp_path / "groundtruth.txt", "w") as f:
+        f.write("# fixture\n")
+        for t, p in zip(ts, gt):
+            f.write(pose_to_tum_line(t, p) + "\n")
+    traj = str(tmp_path / "traj.txt")
+    run_sequence.main([path, "--res-factor", "4", "--device", "cpu",
+                       "--out", traj])
+    t_est, p_est = read_tum_trajectory(traj)
+    assert len(t_est) == 5
+    assert ate_rmse(t_est, p_est, np.asarray(ts), gt) < 0.02
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--html", "v.html"], 6), (["--viz", "panels"], 6),
+    (["--live", "0"], 6), (["--loop-closure"], 5),
+    (["--live-every", "3"], 6)])
+def test_unported_flags_raise_by_name(dataset, tmp_path, flag, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"{flag[0]} .*ROADMAP.md queue 1 item {item}"):
+        run_sequence.main([str(dataset), *BASE, "--out",
+                           str(tmp_path / "t.txt"), *flag])
+    assert not (tmp_path / "t.txt").exists()

@@ -168,18 +168,21 @@ def test_kernel_build_starts_one_compiler_per_source(tmp_path, monkeypatch):
 
 
 def test_csrc_is_declared_package_data():
-    """pyproject.toml ships every csrc/*.cu and *.cuh with the package, so
-    an installed port can build its kernels."""
+    """pyproject.toml ships every csrc/*.cu and *.cuh and csrc/io/*.cpp
+    with the package, so an installed port can build its kernels and its
+    native I/O library, and lists every subpackage."""
     import fnmatch
     import tomllib
 
     meta = tomllib.loads((REPO / "pyproject.toml").read_text())
     tool = meta["tool"]["setuptools"]
     assert "staticfusion_tpu_torch" in tool["packages"]
+    assert {f"staticfusion_tpu_torch.{p.parent.name}"
+            for p in PKG.glob("*/__init__.py")} <= set(tool["packages"])
     globs = tool["package-data"]["staticfusion_tpu_torch"]
-    assert sorted(globs) == ["csrc/*.cu", "csrc/*.cuh"]
+    assert sorted(globs) == ["csrc/*.cu", "csrc/*.cuh", "csrc/io/*.cpp"]
     sources = [p.relative_to(PKG).as_posix()
-               for p in (PKG / "csrc").iterdir()]
+               for p in (PKG / "csrc").rglob("*") if p.is_file()]
     assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs)
                            for s in sources)
 
