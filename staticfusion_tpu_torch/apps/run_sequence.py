@@ -6,10 +6,10 @@ The port's copy of apps/run_sequence.py, with the same flags and
   python -m staticfusion_tpu_torch.apps.run_sequence DATASET_DIR
       [--assoc rgbd_assoc.txt] [--depth-scale 1000] [--out traj.txt]
       [--ply map.ply] [--metrics metrics.jsonl] [--max-frames N]
-      [--checkpoint state.npz] [--resume state.npz] [--device cuda]
+      [--checkpoint state.npz] [--resume state.npz] [--loop-closure]
+      [--device cuda]
 
---html, --viz, --live, --live-every and --loop-closure are not ported yet
-and raise.
+--html, --viz, --live and --live-every are not ported yet and raise.
 """
 
 import argparse
@@ -18,7 +18,8 @@ import dataclasses
 import os
 
 from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
-                                           SFConfig, solver_preset_ctor,
+                                           LoopClosureConfig, SFConfig,
+                                           solver_preset_ctor,
                                            solver_preset_datasets)
 from staticfusion_tpu_torch.io import rawlog, tum
 from staticfusion_tpu_torch.io.ply import save_ply
@@ -31,8 +32,7 @@ from staticfusion_tpu_torch.utils.metrics import MetricsLogger
 # queue 1 item).
 NOT_PORTED = {"html": ("the web viewer", 6), "viz": ("the viz panels", 6),
               "live": ("the live view", 6),
-              "live_every": ("the live view's refresh", 6),
-              "loop_closure": ("loop closure", 5)}
+              "live_every": ("the live view's refresh", 6)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -63,8 +63,7 @@ def parser() -> argparse.ArgumentParser:
                          "(trace.json, Chrome trace format)")
     ap.add_argument("--loop-closure", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="keyframe loop detection + pose-graph correction "
-                         "(not ported)")
+                    help="keyframe loop detection + pose-graph correction")
     ap.add_argument("--conf-threshold", type=float, default=None,
                     help="surfel confidence cut for --ply (default: config "
                          "value)")
@@ -107,7 +106,9 @@ def make_config(args) -> SFConfig:
     skw = {} if solver is None else {"solver": solver()}
     config = SFConfig(camera=CameraConfig(width=640 // args.res_factor,
                                           height=480 // args.res_factor),
-                      fusion=FusionConfig(**fkw), **skw)
+                      fusion=FusionConfig(**fkw),
+                      loop=LoopClosureConfig(enabled=args.loop_closure),
+                      **skw)
     if args.lambda_reg is not None:
         config = config.replace(solver=dataclasses.replace(
             config.solver, lambda_reg=args.lambda_reg))
@@ -117,7 +118,7 @@ def make_config(args) -> SFConfig:
 def main(argv=None):
     args = parser().parse_args(argv)
     for name, (what, item) in NOT_PORTED.items():
-        if getattr(args, name) is not None and getattr(args, name) is not False:
+        if getattr(args, name) is not None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} ({what}) is not ported to "
                 f"staticfusion_tpu_torch yet: ROADMAP.md queue 1 item {item}")
@@ -151,6 +152,9 @@ def main(argv=None):
 
     slam.write_trajectory(args.out)
     print(f"wrote {len(slam.poses)} poses to {args.out}")
+    if config.loop.enabled:
+        print(f"closed {len(slam.loop_closures)} loops"
+              + (f": {slam.loop_closures}" if slam.loop_closures else ""))
     if seq.gt_times is not None:
         ate = slam.ate(seq.gt_times, seq.gt_poses)
         rpe = slam.rpe(seq.gt_times, seq.gt_poses)

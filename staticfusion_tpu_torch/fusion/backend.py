@@ -4,10 +4,7 @@ oracle `fuse_frame_slots`; reference Reconstruction.cpp:235-325).
 
 Even index factors > 1 (the shipped default F=4) take the surfel-major
 sparse fuse; other factors (the F=1 preset) the texel fuse, on a grid
-routed down to QVGA rows above QVGA (`FusionConfig.route_factor`).  Not
-ported, and refused by `check_supported`: the sparse fuse with
-post_factor == index_factor (`materialize_from_winners`) and capacities
-above 2^21 - 1 (the two-pass z-buffer)."""
+routed down to QVGA rows above QVGA (`FusionConfig.route_factor`)."""
 
 from __future__ import annotations
 
@@ -24,8 +21,7 @@ from staticfusion_tpu_torch.fusion.clean import (kill_mask_from_tex,
                                                  writeback_and_insert)
 from staticfusion_tpu_torch.fusion.indexmap import predict_indices
 from staticfusion_tpu_torch.fusion.surfels import SurfelMap
-from staticfusion_tpu_torch.fusion.texelmap import (id_bits_for,
-                                                    project_surfels)
+from staticfusion_tpu_torch.fusion.texelmap import project_surfels
 from staticfusion_tpu_torch.fusion.update import apply_updates, merge_texels
 from staticfusion_tpu_torch.geometry.se3 import se3_inverse, so3_log
 
@@ -69,19 +65,6 @@ class FuseResult(NamedTuple):
     pred: predict.PredictedView  # next frame's LOW-confidence view
 
 
-def check_supported(config: SFConfig) -> None:
-    """Raise for the configurations whose fuse path is not ported."""
-    fus = config.fusion
-    if (sparse.supports_sparse(config) and
-            sparse.post_factor_config(config).fusion.index_factor
-            == fus.index_factor):
-        raise NotImplementedError(
-            "post_factor == index_factor (materialize_from_winners) is not "
-            f"ported; got index_factor={fus.index_factor}, "
-            f"post_factor={fus.post_factor}")
-    id_bits_for(fus.capacity)
-
-
 def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
                T_odometry: torch.Tensor, raw_depth_m: torch.Tensor,
                filtered_depth_m: torch.Tensor, rgb: torch.Tensor,
@@ -98,7 +81,6 @@ def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
     association -> texel merge -> window kill on the merged texels ->
     write-back and insert -> the merged texels splatted as the next
     frame's prediction."""
-    check_supported(config)
     if sparse.supports_sparse(config):
         return fuse_frame_sparse(smap, curr_pose, T_odometry, raw_depth_m,
                                  filtered_depth_m, rgb, static_prob, tick,
@@ -142,7 +124,9 @@ def fuse_frame_sparse(smap: SurfelMap, curr_pose: torch.Tensor,
                       config: SFConfig) -> FuseResult:
     """Surfel-major association on the F-resolution z-buffer -> slot-space
     merge -> `post_factor` render of the merged map for the clean window
-    test and the prediction splat -> lifecycle + watermark insert."""
+    test and the prediction splat -> lifecycle + watermark insert.  At
+    post factor == index factor the render reuses the association's
+    z-buffer winners (sparse.materialize_from_winners)."""
     fus = config.fusion
     cfg1 = sparse.post_factor_config(config)
     last_pose = curr_pose
@@ -153,7 +137,12 @@ def fuse_frame_sparse(smap: SurfelMap, curr_pose: torch.Tensor,
                                     filtered_depth_m, rgb, static_prob,
                                     curr_pose, tick, weighting, config)
     merged_map = apply_updates(smap, assoc.updates, tick)
-    tex1, _ = predict_indices(merged_map, curr_pose, tick, cfg1)
+    if cfg1.fusion.index_factor == fus.index_factor:
+        tex1 = sparse.materialize_from_winners(
+            merged_map, project_surfels(merged_map, curr_pose, config),
+            assoc.is_winner, assoc.flat, config)
+    else:
+        tex1, _ = predict_indices(merged_map, curr_pose, tick, cfg1)
     kill_tex = window_kill_tex(tex1, tick, cfg1)
     killed = kill_mask_from_tex(kill_tex, tex1.idx, merged_map.capacity)
     smap_out = sparse.lifecycle_and_insert(merged_map, killed, assoc.new,

@@ -5,9 +5,9 @@ update.vert / copy_unstable.vert at FACTOR=4).
 Every texel-winning surfel has a unique checkerboard-active candidate pixel
 (even F), so association runs per surfel: it gathers that pixel's
 measurement, applies the data.vert gates and competes for the pixel with a
-packed (quantised distance << id_bits | id) scatter-min.  Each pixel keeps
-at most one surfel, so the update records route pixel -> slot without
-collisions.
+packed (quantised distance << id_bits | id) scatter-min (above 21 id bits
+the exact two-pass one of texelmap.zbuffer).  Each pixel keeps at most one
+surfel, so the update records route pixel -> slot without collisions.
 """
 
 from __future__ import annotations
@@ -27,10 +27,11 @@ from staticfusion_tpu_torch.fusion.surfels import (SurfelMap,
                                                    append_at_watermark,
                                                    frame_cloud, pack_rows,
                                                    radial_confidence)
-from staticfusion_tpu_torch.fusion.texelmap import (INT_MAX, INVALID,
-                                                    SurfelsLocal, id_bits_for,
-                                                    packed_keys, render_cull,
-                                                    scatter_min)
+from staticfusion_tpu_torch.fusion.texelmap import (INVALID, SurfelsLocal,
+                                                    TexelImages, id_bits_for,
+                                                    render_cull,
+                                                    scatter_winner_rows,
+                                                    zbuffer)
 
 # Point-to-ray distances of window candidates are bounded by the window
 # reach (~1.5 px at F=4/QVGA, <= 0.026 m); 0.1 m of range leaves 4x margin.
@@ -56,19 +57,19 @@ def supports_sparse(config: SFConfig) -> bool:
 def zbuffer_winners(smap: SurfelMap, local: SurfelsLocal, tick: torch.Tensor,
                     config: SFConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ok, is_winner): render-cull mask and per-surfel z-buffer verdict on
-    the F-resolution texel grid (packed depth keys, smaller id on ties)."""
+    the F-resolution texel grid (texelmap.zbuffer: packed depth keys, or
+    the exact two-pass order above 21 id bits; smaller id on ties)."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
     cols4 = cam.width * F
     S = cam.height * F * cols4
-    ib = id_bits_for(smap.capacity)
     ok = render_cull(smap, local, tick, config)
     flat = torch.where(ok, local.v4 * cols4 + local.u4,
                        torch.full_like(local.u4, S))
-    key = packed_keys(local.pos[:, 2], fus.depth_max, ib)
-    fb = scatter_min(flat, key, S)
-    return ok, ok & (fb[flat] == key)
+    buf, key, _ = zbuffer(flat, local.pos[:, 2], fus.depth_max,
+                          id_bits_for(smap.capacity), S)
+    return ok, ok & (buf[flat] == key)
 
 
 def candidate_pixel(t: torch.Tensor, t_par: torch.Tensor, F: int,
@@ -150,11 +151,10 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
                | (torch.abs(torch.arccos(cos_angle)) < fus.assoc_angle_gate))
     cand = pix_ok & act_g & depth_ok & norm_ok
 
-    # Best candidate per pixel: packed (quantised distance, id) scatter-min.
+    # Best candidate per pixel: the smallest distance, then the smaller id
+    # (the winner is INVALID where no candidate came).
     tgt = torch.where(cand, pflat, torch.full_like(pflat, n_pix))
-    pbuf = scatter_min(tgt, packed_keys(dist, DIST_CAP, ib), n_pix)[:n_pix]
-    best_flat = torch.where(pbuf != INT_MAX, pbuf & ((1 << ib) - 1),
-                            torch.full_like(pbuf, INVALID))
+    _, _, best_flat = zbuffer(tgt, dist, DIST_CAP, ib, n_pix)
     best_id = best_flat.reshape(rows, cols)
     matched = active & (best_id != INVALID)
     is_new = active & (best_id == INVALID)
@@ -190,6 +190,29 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
     return SparseAssoc(updates=updates, new=new, best_id=best_id,
                        matched=matched, active=active, is_winner=is_win,
                        flat=flat)
+
+
+def materialize_from_winners(smap: SurfelMap, local: SurfelsLocal,
+                             won: torch.Tensor, flat: torch.Tensor,
+                             config: SFConfig) -> TexelImages:
+    """Texel attribute images of `smap` (post-merge, projected as `local`)
+    on the index-factor grid, reusing the PRE-merge winner set `won` and
+    flat texel indices `flat` (SparseAssoc.is_winner, .flat): no second
+    z-buffer.  The merge moves winners by millimetres, so z-order flips
+    between the two renders are rare (the reference re-renders before
+    clean, Reconstruction.cpp:300).  The row scatter of
+    texelmap.render_texel_images' capacity-bound branch."""
+    cam = config.camera
+    F = config.fusion.index_factor
+    rows4, cols4 = cam.height * F, cam.width * F
+    rows = torch.cat([local.pos, local.normal, smap.radius[:, None],
+                      smap.conf[:, None], smap.init_time[:, None],
+                      smap.last_time[:, None], smap.color,
+                      smap.hist[:, None]], dim=1)
+    idx, has, attrs = scatter_winner_rows(won, flat, rows, rows4 * cols4)
+    img = lambda a: a.reshape(rows4, cols4)
+    return TexelImages(img(idx), img(has),
+                       *[img(attrs[i]) for i in range(14)])
 
 
 def lifecycle_and_insert(smap: SurfelMap, killed: torch.Tensor,

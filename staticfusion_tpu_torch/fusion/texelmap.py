@@ -1,11 +1,16 @@
 """Texel-space surfel render (port of the parts of
-staticfusion_tpu/fusion/texelmap.py on the F=4 per-frame path).
+staticfusion_tpu/fusion/texelmap.py on the per-frame path).
 
-ONE packed-key scatter-min picks each texel's winning surfel:
-key = (quantised_depth << id_bits) | surfel_id.  A min is order-free, so
-the render is deterministic on CUDA too, and depth ties go to the smaller
-id.  Every scatter/gather buffer carries one sentinel slot past the end:
-"no target" routes there (JAX drops such indices) and is sliced off.
+Up to 21 id bits, ONE packed-key scatter-min picks each texel's winning
+surfel: key = (quantised_depth << id_bits) | surfel_id.  Above that (the
+reference's 2^23-surfel map, GlobalModel.cpp:21-22) the render switches to
+an exact two-pass z-buffer: a scatter-min of the float32 depth bits viewed
+as int32 (positive floats order like their bit patterns), then a
+scatter-min of ids over the surfels whose bits equal their texel's
+winner.  A min is order-free, so either render is deterministic on CUDA
+too, and depth ties go to the smaller id.  Every scatter/gather buffer
+carries one sentinel slot past the end: "no target" routes there (JAX
+drops such indices) and is sliced off.
 """
 
 from __future__ import annotations
@@ -21,9 +26,9 @@ from staticfusion_tpu_torch.geometry.se3 import se3_inverse
 
 INT_MAX = 2**31 - 1
 INVALID = INT_MAX  # "no surfel" id (staticfusion_tpu/ops/zbuffer.py)
-# Packed keys leave (31 - id_bits) depth bits; above 21 id bits the JAX
-# package switches to an exact two-pass z-buffer, which the port does not
-# implement (the default capacity 1<<20 needs 21 bits).
+# Packed keys leave (31 - id_bits) depth bits: >= 10 up to 21 id bits
+# (about 4.4 mm buckets over 4.5 m).  Above it the two-pass z-buffer
+# orders by exact float32 depth.
 PACKED_MAX_ID_BITS = 21
 # Texel coordinates are clamped to +-2^30 before the integer conversion:
 # anything that far out is culled either way, and the clamp keeps the
@@ -33,11 +38,9 @@ _COORD_CLAMP = float(1 << 30)
 
 def id_bits_for(capacity: int) -> int:
     b = max(1, math.ceil(math.log2(capacity + 1)))
-    if b > PACKED_MAX_ID_BITS:
-        raise NotImplementedError(
-            f"capacity {capacity} needs {b} id bits: the packed z-buffer "
-            f"holds at most {PACKED_MAX_ID_BITS}, and the two-pass z-buffer "
-            f"above 2^{PACKED_MAX_ID_BITS} - 1 surfels is not ported")
+    if b >= 31:
+        raise ValueError(f"capacity {capacity} too large for int32 surfel "
+                         "ids")
     return b
 
 
@@ -128,51 +131,88 @@ def scatter_min(target: torch.Tensor, keys: torch.Tensor,
     return buf
 
 
+def zbuffer(target: torch.Tensor, values: torch.Tensor, cap: float,
+            ib: int, n: int):
+    """Per-slot minimum of non-negative float32 `values` over elements
+    0..N-1 routed to `target` (n = no slot), ties to the smaller index.
+    Returns (buf, key, winner): buf (n+1,) the per-slot minimum key,
+    key (N,) each element's key (buf[target] == key marks the winners),
+    winner (n,) the winning index per slot, INT_MAX where empty.
+
+    Up to PACKED_MAX_ID_BITS id bits one scatter-min of packed keys
+    (values quantised over [0, cap]); above, two: the float32 bits viewed
+    as int32, then the indices of the elements whose bits equal their
+    slot's minimum."""
+    if ib <= PACKED_MAX_ID_BITS:
+        key = packed_keys(values, cap, ib)
+        buf = scatter_min(target, key, n)
+        winner = torch.where(buf[:n] != INT_MAX, buf[:n] & ((1 << ib) - 1),
+                             buf[:n])
+        return buf, key, winner
+    bits = values.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64)
+    best = scatter_min(target, bits, n)
+    target2 = torch.where(bits == best[target], target,
+                          torch.full_like(target, n))
+    key = torch.arange(values.shape[0], device=values.device)
+    buf = scatter_min(target2, key, n)
+    return buf, key, buf[:n]
+
+
+def scatter_winner_rows(won: torch.Tensor, flat: torch.Tensor,
+                        rows: torch.Tensor, S: int):
+    """(idx, has, attrs): each winning surfel writes its id and its
+    (N, C) attribute row to its texel (unique targets, so the writes are
+    deterministic).  idx (S,) int64, INT_MAX where no surfel won; attrs
+    (C, S), 0 there.  The id goes through an int64 buffer of its own, so
+    it stays exact at any capacity."""
+    dev = rows.device
+    tgt = torch.where(won, flat, torch.full_like(flat, S))
+    out = torch.zeros((S + 1, rows.shape[1]), device=dev)
+    out.index_copy_(0, tgt, rows.contiguous())
+    idx = torch.full((S + 1,), INT_MAX, dtype=torch.int64, device=dev)
+    idx.index_copy_(0, tgt, torch.arange(rows.shape[0], device=dev))
+    return idx[:S], idx[:S] != INT_MAX, out[:S].T
+
+
 def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
                         tick: torch.Tensor, config: SFConfig,
                         conf_threshold: float = 0.0,
-                        z_min: float = 0.0) -> TexelImages:
-    """Packed-key z-buffered surfel render + attribute images.  Texel grids
-    up to twice the map's capacity gather attributes at the winner ids;
-    larger grids have each winning surfel write its row to its texel
-    (unique targets, so the write is deterministic)."""
+                        z_min: float = 0.0,
+                        materialize: str = "auto") -> TexelImages:
+    """Z-buffered surfel render + attribute images.  `materialize`
+    "gather" reads the attributes at the winner ids (texel-count bound),
+    "scatter" has each winning surfel write its row to its texel
+    (capacity bound); "auto" gathers when the texel grid is at most twice
+    the map's capacity.  Both give the same images."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
     rows4, cols4 = cam.height * F, cam.width * F
     S = rows4 * cols4
-    ib = id_bits_for(smap.capacity)
 
     ok = render_cull(smap, local, tick, config, conf_threshold, z_min)
     flat = torch.where(ok, local.v4 * cols4 + local.u4,
                        torch.full_like(local.u4, S))
-    key = packed_keys(local.pos[:, 2], fus.depth_max, ib)
-    fb = scatter_min(flat, key, S)
-    has = fb[:S] != INT_MAX
+    buf, key, winner = zbuffer(flat, local.pos[:, 2], fus.depth_max,
+                               id_bits_for(smap.capacity), S)
+    has = winner != INT_MAX
 
     stacked = torch.stack([
         local.pos[:, 0], local.pos[:, 1], local.pos[:, 2],
         local.normal[:, 0], local.normal[:, 1], local.normal[:, 2],
         smap.radius, smap.conf, smap.init_time, smap.last_time,
         smap.color[:, 0], smap.color[:, 1], smap.color[:, 2], smap.hist])
-    zero = torch.zeros((), device=key.device)
-    if S <= 2 * smap.capacity:
-        winner = torch.where(has, fb[:S] & ((1 << ib) - 1),
-                             torch.full_like(fb[:S], INT_MAX))
+    use_gather = (S <= 2 * smap.capacity if materialize == "auto"
+                  else materialize == "gather")
+    if use_gather:
         safe = torch.where(has, winner, torch.zeros_like(winner))
-        attrs = torch.where(has[None, :], stacked[:, safe], zero)
+        attrs = torch.where(has[None, :], stacked[:, safe],
+                            torch.zeros((), device=key.device))
         idx = winner
     else:
-        won = ok & (fb[flat] == key)
-        tgt = torch.where(won, flat, torch.full_like(flat, S))
-        ids = torch.arange(smap.capacity, device=key.device)
-        out = torch.zeros((S + 1, 14), device=key.device)
-        out.index_copy_(0, tgt, stacked.T.contiguous())
-        attrs = out[:S].T
-        idx_buf = torch.full((S + 1,), INT_MAX, dtype=torch.int64,
-                             device=key.device)
-        idx_buf.index_copy_(0, tgt, ids)
-        idx = idx_buf[:S]
+        idx, _, attrs = scatter_winner_rows(ok & (buf[flat] == key), flat,
+                                            stacked.T, S)
     img = lambda a: a.reshape(rows4, cols4)
     return TexelImages(img(idx), img(has),
                        *[img(attrs[i]) for i in range(14)])

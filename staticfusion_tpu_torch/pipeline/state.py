@@ -1,7 +1,7 @@
 """The SLAM state carried across frames (port of
 staticfusion_tpu/pipeline/state.py), plus conversion to and from trees of
-numpy arrays so a port step can start from a state the JAX package
-produced (and back)."""
+numpy arrays so a port step can start from a state (or a keyframe DB) the
+JAX package produced, and back."""
 
 from __future__ import annotations
 
@@ -78,9 +78,10 @@ def entry_device(device) -> torch.device:
 
 
 def state_from_numpy(tree, device="cuda", cls=SlamState):
-    """SlamState (or `cls`, one of its nested types such as SurfelMap) from
-    any tree with the same field names whose leaves are numpy arrays (e.g.
-    a JAX SlamState mapped through np.asarray).  Float leaves become
+    """SlamState (or `cls`: one of its nested types such as SurfelMap, or
+    pipeline.keyframes.KeyframeDB) from any tree with the same field names
+    whose leaves are numpy arrays (e.g. a JAX SlamState or KeyframeDB
+    mapped through np.asarray).  Float leaves become
     float32, integer leaves int32, bool stays bool."""
     device = entry_device(device)
 
@@ -116,7 +117,8 @@ def n_leaves(cls) -> int:
 
 
 def state_to_numpy(state: SlamState) -> SlamState:
-    """The same tree with every tensor copied to a host numpy array."""
+    """The same tree (a SlamState, a nested type or a KeyframeDB) with
+    every tensor copied to a host numpy array."""
     def conv(node):
         if isinstance(node, torch.Tensor):
             return node.detach().cpu().numpy()

@@ -61,7 +61,6 @@ def bootstrap_step(frame0: Frame, frame1: Frame, initial_pose: torch.Tensor,
                    config: SFConfig):
     """Frames 0 and 1: raw-depth solve with the lenient kb, then the map
     from frame 1 at initial_pose @ T_odometry.  Returns (state, outputs)."""
-    backend.check_supported(config)
     dev = frame1.depth_mm.device
     state = init_state(config, dev)
     depth0 = frame0.depth_mm / 1000.0

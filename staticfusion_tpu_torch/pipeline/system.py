@@ -1,12 +1,14 @@
 """The host side of the SLAM system (port of
-staticfusion_tpu/pipeline/system.py without loop closure).
+staticfusion_tpu/pipeline/system.py).
 
 The device holds all state; the host uploads the frame and keeps poses and
 per-frame scalars as device tensors until they are read.  The map is
 re-tiered every `resize_check_interval` frames, the only scheduled host
-read of the map (besides the solver's per-level exit flag).  Loop closure
-raises, and the JAX package's TPU workarounds (fixed tiers, executable
-cache clearing) are not carried over.
+read of the map (besides the solver's per-level exit flag).  With loop
+closure on (`config.loop`), every keyframe tick reads the query distance
+and, for a candidate, the verification results on the host.  The JAX
+package's TPU workarounds (fixed tiers, executable cache clearing) and its
+progress printing are not carried over.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import numpy as np
 import torch
 
 from staticfusion_tpu_torch.config import SFConfig
-from staticfusion_tpu_torch.fusion.backend import check_supported
 from staticfusion_tpu_torch.fusion.surfels import (SurfelMap, compact_map,
                                                    concat_maps, next_tier)
+from staticfusion_tpu_torch.geometry.se3 import se3_inverse
 from staticfusion_tpu_torch.io import trajectory as traj_io
+from staticfusion_tpu_torch.pipeline import keyframes
 from staticfusion_tpu_torch.pipeline.state import entry_device
 from staticfusion_tpu_torch.pipeline.step import (Frame, StepOutputs,
-                                                  bootstrap_step, slam_step)
+                                                  _intensity, bootstrap_step,
+                                                  slam_step)
 
 
 class FrameRecord(NamedTuple):
@@ -45,9 +49,6 @@ class SlamSystem:
     def __init__(self, config: SFConfig, device="cuda",
                  initial_pose: Optional[np.ndarray] = None,
                  resize_check_interval: int = 8):
-        check_supported(config)
-        if config.loop.enabled:
-            raise NotImplementedError("loop closure is not ported")
         self.config = config
         self.device = entry_device(device)
         self.state = None
@@ -77,6 +78,16 @@ class SlamSystem:
         self.archive_min_batch = 4096
         self.archive: SurfelMap | None = None
         self.capacity_events: List[dict] = []
+        # Loop closure: the keyframe DB lives on the device.  The keyframe
+        # stride starts at kf_interval and doubles whenever the DB nears
+        # capacity (keyframes.halve_db), so the fixed DB spans any run.
+        self._kf_db = (keyframes.empty_db(config.loop.capacity, config.rows,
+                                          config.cols, device=self.device)
+                       if config.loop.enabled else None)
+        self._kf_stride = max(1, config.loop.kf_interval)
+        self.db_halvings: List[dict] = []
+        self.loop_closures: List[dict] = []
+        self.chain_smoothings: List[dict] = []  # skip-constraint corrections
 
     def _maybe_resize_map(self):
         self._frames_since_resize_check += 1
@@ -168,6 +179,8 @@ class SlamSystem:
         else:
             self.state, out = slam_step(self.state, frame, self.config)
         self._maybe_resize_map()
+        if self._kf_db is not None:
+            out = self._maybe_close_loop(frame, out)
         self._record(timestamp, out)
         self.frame_seconds.append(time.perf_counter() - t0)
         return out
@@ -179,7 +192,9 @@ class SlamSystem:
         every chunk, on the schedule of the JAX package's batch path (its
         chunks are one `lax.scan` each; here a loop over `slam_step`).
         The schedule is part of the results: a repack renumbers surfels
-        and z-buffer ties depend on the numbering.
+        and z-buffer ties depend on the numbering.  With loop closure on, a
+        chunk ends before the next keyframe tick, and the tick frame goes
+        through `process` (the closure decision is the host's).
 
         Returns the stacked static-probability images of the processed
         frames (n - 1, H, W) when `collect_prob`, else None."""
@@ -194,6 +209,15 @@ class SlamSystem:
         chunk = self.resize_check_interval
         while i < n:
             k = min(chunk, n - i)
+            if self._kf_db is not None:
+                until_tick = (-len(self.times)) % self._kf_stride
+                if until_tick == 0:
+                    out = self.process(rgbs[i], depth_mms[i], timestamps[i])
+                    if collect_prob:
+                        probs.append(out.static_prob[None])
+                    i += 1
+                    continue
+                k = min(k, until_tick)
             t0 = time.perf_counter()
             for j in range(i, i + k):
                 self.state, out = slam_step(
@@ -208,6 +232,133 @@ class SlamSystem:
             self._maybe_resize_map()
         return torch.cat(probs) if probs else None
 
+    def _maybe_close_loop(self, frame: Frame,
+                          out: StepOutputs) -> StepOutputs:
+        """Every keyframe tick: fingerprint, query the DB and, on a
+        candidate, verify it with two frame-to-frame solves and correct the
+        pose graph; then add the frame as a keyframe.  The query distance
+        and a candidate's verification results are the only host reads."""
+        lc = self.config.loop
+        n = len(self.times)  # frames recorded before this one
+        if n % self._kf_stride != 0:
+            return out
+        db = self._kf_db
+        if int(db.count) >= db.emb.shape[0] - 1:
+            # Near capacity: halve the density and double the stride, so
+            # the DB spans the rest of the run and the chain node that
+            # _apply_graph_correction appends always has a free slot.
+            db = keyframes.halve_db(db)
+            self._kf_stride *= 2
+            self.db_halvings.append({"frame": n, "stride": self._kf_stride,
+                                     "keyframes": int(db.count)})
+            print(f"[loop] keyframe DB at capacity: halved to "
+                  f"{int(db.count)} keyframes, stride -> "
+                  f"{self._kf_stride} frames", flush=True)
+        inten = _intensity(frame.rgb)
+        depth = frame.depth_mm / 1000.0
+        best, dist = keyframes.query(db, keyframes.fingerprint(inten, depth),
+                                     n, lc.min_gap)
+        pose = out.curr_pose
+        closed = False
+        if float(dist) < lc.max_fp_dist:
+            k = int(best)
+            # Two verification solves, the better-verified kept: identity
+            # is in the basin of a genuine revisit, the chain-predicted
+            # relative pose T0 in that of a drifted but overlapping pair.
+            T0 = se3_inverse(db.poses[k]) @ pose
+            T_a, r_a = keyframes.relative_pose(
+                db.intensity[k], db.depth[k], inten, depth, self.config)
+            T_b, r_b = keyframes.relative_pose(
+                db.intensity[k], db.depth[k], inten, depth, self.config,
+                T_init=T0)
+            T, resid = (T_a, r_a) if float(r_a) <= float(r_b) else (T_b, r_b)
+            resid = float(resid)
+            t0, t, t_a, t_b = (np.asarray(m.cpu())[:3, 3]
+                               for m in (T0, T, T_a, T_b))
+            # Drift budget: the correction a closure implies may grow with
+            # the frames since its keyframe.  Dual-init agreement is asked
+            # only of large corrections: a genuine revisit solves to the
+            # same transform from both inits, a z-aliased corridor pair to
+            # two period solutions.
+            gap_frames = max(1, n - int(db.frame_idx[k]))
+            correction_m = float(np.linalg.norm(t0 - t))
+            budget_m = lc.max_drift_rate * gap_frames + 0.05
+            agree_m = float(np.linalg.norm(t_a - t_b))
+            plausible = (correction_m <= budget_m
+                         and (correction_m <= 0.3 or agree_m < 0.15))
+            if resid < lc.max_residual and plausible:
+                pose_before = np.asarray(pose.cpu())
+                pose, db = self._apply_graph_correction(
+                    db, pose, n, k, T, lc.loop_weight)
+                out = out._replace(curr_pose=pose)
+                closed = True
+                self.loop_closures.append({
+                    "frame": n, "keyframe": int(db.frame_idx[k]),
+                    "fp_dist": float(dist), "residual": resid,
+                    # The measured constraint (current -> keyframe), so a
+                    # closure can be checked against ground truth.
+                    "T_rel": np.asarray(T.cpu()).tolist(),
+                    "correction_m": correction_m, "budget_m": budget_m,
+                    "gap_m": float(np.linalg.norm(
+                        np.asarray(pose.cpu())[:3, 3] - pose_before[:3, 3]))})
+        if (not closed and lc.smooth_skip > 0
+                and int(db.count) > lc.smooth_skip):
+            # Chain smoothing: measure a skip constraint (keyframe
+            # count - smooth_skip -> this frame) with the same verified
+            # solve and optimise the chain against it.
+            k = int(db.count) - lc.smooth_skip
+            T, resid = keyframes.relative_pose(
+                db.intensity[k], db.depth[k], inten, depth, self.config,
+                T_init=se3_inverse(db.poses[k]) @ pose)
+            if float(resid) < lc.max_residual:
+                pose, db = self._apply_graph_correction(
+                    db, pose, n, k, T, lc.smooth_weight)
+                out = out._replace(curr_pose=pose)
+                self.chain_smoothings.append({
+                    "frame": n, "keyframe": int(db.frame_idx[k]),
+                    "residual": float(resid)})
+        self._kf_db = keyframes.add_keyframe(db, inten, depth, pose, n)
+        return out
+
+    def _apply_graph_correction(self, db, pose, n, k, T, weight):
+        """Optimise the keyframe chain against one measured constraint
+        (keyframe k -> this frame, appended as node `count`) and apply the
+        solution to the current pose, the keyframe DB, the recorded
+        trajectory, the live map and the archive."""
+        lc = self.config.loop
+        cur_node = int(db.count)
+        chain = db.poses.clone()
+        chain[cur_node] = pose
+        opt = keyframes.close_loop(chain, cur_node + 1, k, cur_node, T,
+                                   weight, lc.gn_iters)
+        pose = opt[cur_node]
+        db = db._replace(poses=opt)
+        self.state = self.state._replace(curr_pose=pose)
+        # Every recorded frame rides the correction of the last keyframe at
+        # or before it (the rule of deform_map), so the trajectory loses
+        # its drift too, not only the current pose.
+        chain_np = np.asarray(chain[:cur_node + 1].cpu())
+        opt_np = np.asarray(opt[:cur_node + 1].cpu())
+        delta = opt_np @ np.linalg.inv(chain_np)
+        keys = np.asarray(db.frame_idx[:cur_node + 1].cpu()).copy()
+        keys[cur_node] = n
+        self._materialize_raw_poses()
+        seg = np.clip(np.searchsorted(keys, np.arange(len(self.poses)),
+                                      side="right") - 1, 0, cur_node)
+        self.poses = [np.asarray(delta[seg[j]] @ p, np.float32)
+                      for j, p in enumerate(self.poses)]
+        if lc.deform_map:
+            # The surfels move with their birth-interval keyframes; the
+            # archive's too (its surfels are part of the corrected world).
+            fidx = db.frame_idx.clone()
+            fidx[cur_node] = n
+            self.state = self.state._replace(smap=keyframes.deform_map(
+                self.state.smap, fidx, chain, opt, cur_node + 1))
+            if self.archive is not None:
+                self.archive = keyframes.deform_map(
+                    self.archive, fidx, chain, opt, cur_node + 1)
+        return pose, db
+
     def block(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -218,9 +369,13 @@ class SlamSystem:
                  "dense": bool(r.dense), "ddt_sum": float(r.ddt_sum)}
                 for r in self._pending_metrics]
 
-    def _materialize_poses(self):
+    def _materialize_raw_poses(self):
+        """The recorded poses as host arrays, without pose_postmultiply."""
         self.poses = [np.asarray(p.cpu() if isinstance(p, torch.Tensor)
                                  else p) for p in self.poses]
+
+    def _materialize_poses(self):
+        self._materialize_raw_poses()
         if self.pose_postmultiply is not None:
             M = np.asarray(self.pose_postmultiply, np.float32)
             self.poses = [p @ M for p in self.poses]

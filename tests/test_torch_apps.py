@@ -205,12 +205,32 @@ def test_rawlog_run_lands_in_the_raw_gt_frame(sfio, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--html", "v.html"], 6), (["--viz", "panels"], 6),
-    (["--live", "0"], 6), (["--loop-closure"], 5),
-    (["--live-every", "3"], 6)])
+    pytest.param(["--html", "v.html"], 6, id="flag0-6"),
+    pytest.param(["--viz", "panels"], 6, id="flag1-6"),
+    pytest.param(["--live", "0"], 6, id="flag2-6"),
+    pytest.param(["--live-every", "3"], 6, id="flag4-6")])
 def test_unported_flags_raise_by_name(dataset, tmp_path, flag, item):
     with pytest.raises(NotImplementedError,
                        match=f"{flag[0]} .*ROADMAP.md queue 1 item {item}"):
         run_sequence.main([str(dataset), *BASE, "--out",
                            str(tmp_path / "t.txt"), *flag])
     assert not (tmp_path / "t.txt").exists()
+
+
+def test_loop_closure_flag_runs_and_prints_closures(dataset, tmp_path,
+                                                    capsys):
+    """--loop-closure runs the sequence with the keyframe DB on and prints
+    the closure count.  The forward-only dataset revisits nothing, and at
+    the default keyframe interval (10) its 7 recorded frames hold one
+    tick: no closure."""
+    traj = tmp_path / "t.txt"
+    run_sequence.main([str(dataset), *BASE, "--out", str(traj),
+                       "--loop-closure"])
+    printed = capsys.readouterr().out
+    assert "closed 0 loops" in printed.splitlines()
+    t, poses = read_tum_trajectory(str(traj))
+    gt_t, gt = read_tum_trajectory(str(dataset / "groundtruth.txt"))
+    assert len(t) == N - 1 and ate_rmse(t, poses, gt_t, gt) < 0.02
+    run_sequence.main([str(dataset), *BASE, "--out", str(traj),
+                       "--max-frames", "3"])
+    assert "closed" not in capsys.readouterr().out

@@ -301,9 +301,10 @@ def test_routed_bootstrap_map(inputs):
                                   "post_eq_index", "capacity_2e21",
                                   "loop_closure"])
 def test_check_supported(case):
-    """SlamSystem accepts F=1 at QVGA and routed VGA; it raises, by name,
-    only for the sparse fuse with post_factor == index_factor, capacities
-    above 2^21 - 1 and loop closure."""
+    """SlamSystem accepts F=1 at QVGA and routed VGA, the F=4 default, the
+    sparse fuse with post_factor == index_factor, capacities above
+    2^21 - 1 (the two-pass z-buffer) and loop closure: no configuration
+    is refused."""
     import dataclasses
 
     from staticfusion_tpu_torch.config import (CameraConfig as TCam,
@@ -312,25 +313,20 @@ def test_check_supported(case):
     from staticfusion_tpu_torch.config import SFConfig as TSF
     from staticfusion_tpu_torch.pipeline.system import SlamSystem
     qvga = TCam(width=320, height=240)
-    cfg, error = {
-        "qvga_f1": (TSF(camera=qvga, fusion=TFus(capacity=1 << 18,
-                                                 index_factor=1)), None),
-        "vga_routed": (TSF(camera=TCam(width=640, height=480),
-                           fusion=TFus(capacity=1 << 20, index_factor=1)),
-                       None),
-        "qvga_f4": (TSF(camera=qvga), None),
-        "post_eq_index": (TSF(camera=qvga, fusion=TFus(post_factor=4)),
-                          "materialize_from_winners"),
-        "capacity_2e21": (TSF(camera=qvga, fusion=TFus(capacity=1 << 21,
-                                                       index_factor=1)),
-                          "two-pass z-buffer"),
-        "loop_closure": (TSF(camera=qvga), "loop closure"),
+    cfg = {
+        "qvga_f1": TSF(camera=qvga, fusion=TFus(capacity=1 << 18,
+                                                index_factor=1)),
+        "vga_routed": TSF(camera=TCam(width=640, height=480),
+                          fusion=TFus(capacity=1 << 20, index_factor=1)),
+        "qvga_f4": TSF(camera=qvga),
+        "post_eq_index": TSF(camera=qvga, fusion=TFus(post_factor=4)),
+        "capacity_2e21": TSF(camera=qvga, fusion=TFus(capacity=1 << 21,
+                                                      index_factor=1)),
+        "loop_closure": TSF(camera=qvga),
     }[case]
     if case == "loop_closure":
         cfg = cfg.replace(loop=dataclasses.replace(LoopClosureConfig(),
                                                    enabled=True))
-    if error is None:
-        assert SlamSystem(cfg, device="cpu").device.type == "cpu"
-    else:
-        with pytest.raises(NotImplementedError, match=error):
-            SlamSystem(cfg, device="cpu")
+    slam = SlamSystem(cfg, device="cpu")
+    assert slam.device.type == "cpu"
+    assert (slam._kf_db is not None) == (case == "loop_closure")
