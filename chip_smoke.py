@@ -67,20 +67,40 @@ Phases (each prints one line; any failure exits non-zero):
      The JAX package's committed figures are printed beside, not gated;
      per run of phases 8-10 the kernel launches (counts set to 0 before
      it);
-  11. profile: torch.profiler counts the device kernels of one K3 call
+  11. live: the live path and the viewers at SFConfig().  (a) A producer
+     thread sends 60 frames of run_camera's synthetic sequence with the
+     port's SFRD writer over a socket pair at 30 Hz, each stamped with
+     time.time(); run_camera's loop consumes them on the card, first in
+     replay (every frame: 59 poses, ATE < 0.02 m), then drop-to-latest
+     (60 received = delivered + dropped, finite poses; ATE printed, not
+     gated); capture->pose latency median and p90, launches.  (b)
+     render_view of phase 4's final map at its final pose on the card and
+     on the CPU: identical texel winners, hit masks agree at >= 99% of
+     pixels, rgb within 2/255 at >= 99.9% of common hits (every mode's
+     largest difference printed), and its time on the card (CUDA events,
+     mean of 20).  (c) run_sequence --html --viz
+     --live 0 --live-every 5 over the app phase's dataset: the page holds
+     the PLY's points and both trajectories, one panel PNG per processed
+     frame read back by the native decoder, and /frame.png,
+     /metrics.json and /params.json answer after the run (requests time
+     out after 5 s; every socket read and thread join after 60 s); its
+     wall ms/frame beside run_tum's;
+  12. profile: torch.profiler counts the device kernels of one K3 call
      at each level size and of one K1 call (exactly one each) and their
      device times, and the device kernels and busy time per main-path
      frame over 3 more frames.  Last, because a profiler run before the
      main path coincided with slower frames;
 then the script's total time, a JSON line with the kernels (their
-launches on the main path, in each gate, app, branches, loop-gate and
-corridor run, and K3's launches per keyframe tick of the corridor run),
+launches on the main path, in each gate, app, branches, loop-gate,
+corridor and live run, and K3's launches per keyframe tick of the
+corridor run),
 and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import json
 import os
@@ -88,6 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 
@@ -121,6 +142,22 @@ APP_SPLIT = 17
 BIG_MAP_FRAMES = 12
 # The corridor phase: frames of the corridor_loop profile.
 CORRIDOR_FRAMES = 300
+# The live phase: frames of run_camera's paced socket stream and its rate;
+# every socket read and thread join waits at most LIVE_TIMEOUT seconds.
+# render_view of the main path's map, card vs CPU: the same texel winners,
+# hit masks agree at >= RENDER_HIT_AGREE of pixels, rgb within
+# RENDER_RGB_TOL/255 at >= RENDER_RGB_SHARE of the common hits (the splat
+# picks the nearest of its candidate disks; two adjacent surfels at
+# depths equal to the last bits can swap between card and CPU, which
+# changes a pixel's color by a few /255: 1 pixel of 74106 common hits,
+# by 4/255, on an H100); its time is the mean over RENDER_REPS calls.
+LIVE_FRAMES = 60
+LIVE_HZ = 30.0
+LIVE_TIMEOUT = 60.0
+RENDER_HIT_AGREE = 0.99
+RENDER_RGB_TOL = 2
+RENDER_RGB_SHARE = 0.999
+RENDER_REPS = 20
 # tests/test_accuracy.py's gates: (name, profile, width, height, capacity,
 # index_factor, frames, ATE limit, IoU floor or None).  Seed 0.
 GATES = (
@@ -886,9 +923,10 @@ def _app_launch_check(tag, launches, n):
           f"{tag}: K2 launched standalone: {launches}")
 
 
-def phase_app(card):
+def phase_app(card, tmp):
     """The dataset path through the port's apps on the card (phase 7 of
-    the module docstring).  Returns {run: launches}."""
+    the module docstring), in directory `tmp`.  Returns ({run: launches},
+    the dataset's directory, run_tum's wall median ms/frame)."""
     from staticfusion_tpu_torch.apps import make_synthetic_dataset as mkdata
     from staticfusion_tpu_torch.apps import run_sequence, run_tum
     from staticfusion_tpu_torch.config import CameraConfig, SFConfig
@@ -898,126 +936,125 @@ def phase_app(card):
     from staticfusion_tpu_torch.utils import checkpoint
     counters = _counters()
     n, split = APP_FRAMES, APP_SPLIT
-    with tempfile.TemporaryDirectory(prefix="sf_app_") as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        cfg = SFConfig(camera=CameraConfig(width=640, height=480))
-        frames, poses = synthetic.make_sequence(cfg, n, mkdata.TWIST)
-        mkdata.write_dataset(data, frames, poses)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        lib = native.build()
-        build_s = time.perf_counter() - t0
-        entries = load_assoc(data)
-        for i, (e, (rgb, depth_mm, _)) in enumerate(zip(entries, frames)):
-            want_rgb, want_depth = mkdata.encode_frame(rgb, depth_mm)
-            for path, want in ((e.rgb_path, want_rgb),
-                               (e.depth_path, want_depth)):
-                got = native.decode_png(path)
-                check(got is not None and got.dtype == want.dtype
-                      and np.array_equal(got, want),
-                      f"app: frame {i}: {path} does not decode to the "
-                      "arrays it was written from")
-        print(f"[app] dataset: {n} frames 640x480 (PNG, depth 5000/m) "
-              f"written in {write_s:.2f} s; the native decoder "
-              f"({os.path.relpath(lib)}, g++ {build_s:.1f} s) returns every "
-              f"frame's arrays exactly", flush=True)
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    cfg = SFConfig(camera=CameraConfig(width=640, height=480))
+    frames, poses = synthetic.make_sequence(cfg, n, mkdata.TWIST)
+    mkdata.write_dataset(data, frames, poses)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    entries = load_assoc(data)
+    for i, (e, (rgb, depth_mm, _)) in enumerate(zip(entries, frames)):
+        want_rgb, want_depth = mkdata.encode_frame(rgb, depth_mm)
+        for path, want in ((e.rgb_path, want_rgb),
+                           (e.depth_path, want_depth)):
+            got = native.decode_png(path)
+            check(got is not None and got.dtype == want.dtype
+                  and np.array_equal(got, want),
+                  f"app: frame {i}: {path} does not decode to the "
+                  "arrays it was written from")
+    print(f"[app] dataset: {n} frames 640x480 (PNG, depth 5000/m) "
+          f"written in {write_s:.2f} s; the native decoder "
+          f"({os.path.relpath(lib)}, g++ {build_s:.1f} s) returns every "
+          f"frame's arrays exactly", flush=True)
 
-        # run_tum: the trajectory goes to ./odometry_results/ under tmp.
-        out = {k: os.path.join(tmp, v) for k, v in (
-            ("ply", "map.ply"), ("metrics", "full.jsonl"),
-            ("ckpt", "full.npz"), ("a", "a.npz"), ("b", "b.npz"),
-            ("b_traj", "b.txt"), ("b_metrics", "b.jsonl"),
-            ("a_traj", "a.txt"), ("rest", "rest_assoc.txt"))}
-        with contextlib.chdir(tmp):
-            launches, ms, wall, run_s = _app_run(
-                [run_tum.main, data, "--res-factor", "2", "--ply",
-                 out["ply"], "--metrics", out["metrics"], "--checkpoint",
-                 out["ckpt"]], counters)
-        traj = os.path.join(tmp, "odometry_results", "experiment_000.txt")
-        check(os.path.isfile(traj), "app: run_tum wrote no "
-              "odometry_results/experiment_000.txt")
-        _app_launch_check("app run_tum", launches, n)
-        rows = [json.loads(line) for line in open(out["metrics"])]
-        frame_rows = [r for r in rows if "frame" in r]
-        check([r["frame"] for r in frame_rows] == list(range(1, n)),
-              f"app: metrics rows for frames "
-              f"{[r['frame'] for r in frame_rows]}, expected 1..{n - 1}")
-        ate, rpe = rows[-1].get("ate_rmse"), rows[-1].get("rpe_rmse")
-        check(ate is not None and np.isfinite(ate) and ate < ATE_LIMIT,
-              f"app: run_tum ATE {ate} m >= {ATE_LIMIT}")
-        thr = SFConfig().fusion.confidence_threshold
-        state = checkpoint.load_state(out["ckpt"])
-        archive = checkpoint.load_archive(out["ckpt"])
-        above = sum(int(((m.conf > thr) & m.valid).sum())
-                    for m in (state.smap, archive) if m is not None)
-        n_ply = load_ply_count(out["ply"])
-        check(n_ply == above, f"app: PLY has {n_ply} vertices, the map "
-              f"{above} above {thr}")
-        check(int(state.tick) == n, f"app: checkpoint tick {int(state.tick)}")
-        med = float(np.median(ms[1:]))
-        check(len(ms) == n - 2 and len(wall) == n - 3,
-              f"app: {len(ms)} steps, {len(wall)} step-to-step times")
-        wall_med = float(np.median(wall[1:]))
-        print(f"  run_tum (QVGA F=4 post 2, --res-factor 2): {n - 1} poses, "
-              f"ATE {ate:.5f} m (< {ATE_LIMIT}), RPE {rpe:.5f} m, PLY "
-              f"{n_ply} vertices = checkpointed map above {thr}, "
-              f"{len(frame_rows)} metrics rows for frames 1..{n - 1}; step "
-              f"median {med:.3f} ms/frame over frames 3..{n - 1} (min "
-              f"{min(ms[1:]):.3f}, max {max(ms[1:]):.3f}); app wall median "
-              f"{wall_med:.3f} ms/frame, step start to step start from "
-              f"frames 3..{n - 2} (min {min(wall[1:]):.3f}, max "
-              f"{max(wall[1:]):.3f}); run {run_s:.3f} s for {n} frames "
-              f"({1e3 * run_s / n:.3f} ms/frame with set-up, PLY and "
-              f"checkpoint); launches K1 {launches['preprocess_depth']}, K3 "
-              f"{launches['irls_solve']}, K2 {launches['spd_solve']}; on "
-              f"{card}", flush=True)
-        results = {"app run_tum": launches}
+    # run_tum: the trajectory goes to ./odometry_results/ under tmp.
+    out = {k: os.path.join(tmp, v) for k, v in (
+        ("ply", "map.ply"), ("metrics", "full.jsonl"),
+        ("ckpt", "full.npz"), ("a", "a.npz"), ("b", "b.npz"),
+        ("b_traj", "b.txt"), ("b_metrics", "b.jsonl"),
+        ("a_traj", "a.txt"), ("rest", "rest_assoc.txt"))}
+    with contextlib.chdir(tmp):
+        launches, ms, wall, run_s = _app_run(
+            [run_tum.main, data, "--res-factor", "2", "--ply",
+             out["ply"], "--metrics", out["metrics"], "--checkpoint",
+             out["ckpt"]], counters)
+    traj = os.path.join(tmp, "odometry_results", "experiment_000.txt")
+    check(os.path.isfile(traj), "app: run_tum wrote no "
+          "odometry_results/experiment_000.txt")
+    _app_launch_check("app run_tum", launches, n)
+    rows = [json.loads(line) for line in open(out["metrics"])]
+    frame_rows = [r for r in rows if "frame" in r]
+    check([r["frame"] for r in frame_rows] == list(range(1, n)),
+          f"app: metrics rows for frames "
+          f"{[r['frame'] for r in frame_rows]}, expected 1..{n - 1}")
+    ate, rpe = rows[-1].get("ate_rmse"), rows[-1].get("rpe_rmse")
+    check(ate is not None and np.isfinite(ate) and ate < ATE_LIMIT,
+          f"app: run_tum ATE {ate} m >= {ATE_LIMIT}")
+    thr = SFConfig().fusion.confidence_threshold
+    state = checkpoint.load_state(out["ckpt"])
+    archive = checkpoint.load_archive(out["ckpt"])
+    above = sum(int(((m.conf > thr) & m.valid).sum())
+                for m in (state.smap, archive) if m is not None)
+    n_ply = load_ply_count(out["ply"])
+    check(n_ply == above, f"app: PLY has {n_ply} vertices, the map "
+          f"{above} above {thr}")
+    check(int(state.tick) == n, f"app: checkpoint tick {int(state.tick)}")
+    med = float(np.median(ms[1:]))
+    check(len(ms) == n - 2 and len(wall) == n - 3,
+          f"app: {len(ms)} steps, {len(wall)} step-to-step times")
+    wall_med = float(np.median(wall[1:]))
+    print(f"  run_tum (QVGA F=4 post 2, --res-factor 2): {n - 1} poses, "
+          f"ATE {ate:.5f} m (< {ATE_LIMIT}), RPE {rpe:.5f} m, PLY "
+          f"{n_ply} vertices = checkpointed map above {thr}, "
+          f"{len(frame_rows)} metrics rows for frames 1..{n - 1}; step "
+          f"median {med:.3f} ms/frame over frames 3..{n - 1} (min "
+          f"{min(ms[1:]):.3f}, max {max(ms[1:]):.3f}); app wall median "
+          f"{wall_med:.3f} ms/frame, step start to step start from "
+          f"frames 3..{n - 2} (min {min(wall[1:]):.3f}, max "
+          f"{max(wall[1:]):.3f}); run {run_s:.3f} s for {n} frames "
+          f"({1e3 * run_s / n:.3f} ms/frame with set-up, PLY and "
+          f"checkpoint); launches K1 {launches['preprocess_depth']}, K3 "
+          f"{launches['irls_solve']}, K2 {launches['spd_solve']}; on "
+          f"{card}", flush=True)
+    results = {"app run_tum": launches}
 
-        # Stop after frame split - 1 with a checkpoint, resume over the rest.
-        seq = [run_sequence.main, data, "--res-factor", "2",
-               "--depth-scale", "5000"]
-        launches_a, _, _, _ = _app_run(
-            seq + ["--max-frames", str(split), "--out", out["a_traj"],
-                   "--checkpoint", out["a"], "--metrics", os.devnull],
-            counters)
-        with open(os.path.join(data, "rgbd_assoc.txt")) as f:
-            lines = f.read().splitlines()
-        with open(out["rest"], "w") as f:
-            f.write("\n".join(lines[split:]) + "\n")
-        launches_b, _, _, res_s = _app_run(
-            seq + ["--resume", out["a"], "--assoc", out["rest"], "--out",
-                   out["b_traj"], "--checkpoint", out["b"], "--metrics",
-                   out["b_metrics"]], counters)
-        _app_launch_check("app resume", launches_b, n - split)
-        from staticfusion_tpu_torch.io.trajectory import read_tum_trajectory
-        t_full, p_full = read_tum_trajectory(traj)
-        t_b, p_b = read_tum_trajectory(out["b_traj"])
-        check(len(t_b) == n - split and np.array_equal(
-            t_b, t_full[-(n - split):]), f"app: resumed run wrote {len(t_b)} "
-              f"poses, expected frames {split}..{n - 1}")
-        pose_diff = float(np.abs(p_b - p_full[-(n - split):]).max())
-        b_state = checkpoint.load_state(out["b"])
-        state_diff = float((b_state.curr_pose - state.curr_pose).abs().max())
-        check(max(pose_diff, state_diff) <= 1e-5,
-              f"app: resumed poses differ by {pose_diff} (final state "
-              f"{state_diff}) > 1e-5")
-        b_rows = [json.loads(line) for line in open(out["b_metrics"])]
-        got = [r["surfels"] for r in b_rows if "frame" in r]
-        want = [r["surfels"] for r in frame_rows[split - 1:]]
-        check(got == want, f"app: resumed surfel counts {got}, "
-              f"uninterrupted {want}")
-        print(f"  resume after frame {split - 1}: frames {split}..{n - 1} of "
-              f"the resumed run vs the uninterrupted run: max |pose diff| "
-              f"{pose_diff:.3e} (final state {state_diff:.3e}; <= 1e-5), "
-              f"surfel counts equal at every frame ({got[-1]} at the end); "
-              f"resumed run {res_s:.1f} s; launches K1 "
-              f"{launches_b['preprocess_depth']}, K3 "
-              f"{launches_b['irls_solve']}", flush=True)
-        results["app first part"] = launches_a
-        results["app resume"] = launches_b
+    # Stop after frame split - 1 with a checkpoint, resume over the rest.
+    seq = [run_sequence.main, data, "--res-factor", "2",
+           "--depth-scale", "5000"]
+    launches_a, _, _, _ = _app_run(
+        seq + ["--max-frames", str(split), "--out", out["a_traj"],
+               "--checkpoint", out["a"], "--metrics", os.devnull],
+        counters)
+    with open(os.path.join(data, "rgbd_assoc.txt")) as f:
+        lines = f.read().splitlines()
+    with open(out["rest"], "w") as f:
+        f.write("\n".join(lines[split:]) + "\n")
+    launches_b, _, _, res_s = _app_run(
+        seq + ["--resume", out["a"], "--assoc", out["rest"], "--out",
+               out["b_traj"], "--checkpoint", out["b"], "--metrics",
+               out["b_metrics"]], counters)
+    _app_launch_check("app resume", launches_b, n - split)
+    from staticfusion_tpu_torch.io.trajectory import read_tum_trajectory
+    t_full, p_full = read_tum_trajectory(traj)
+    t_b, p_b = read_tum_trajectory(out["b_traj"])
+    check(len(t_b) == n - split and np.array_equal(
+        t_b, t_full[-(n - split):]), f"app: resumed run wrote {len(t_b)} "
+          f"poses, expected frames {split}..{n - 1}")
+    pose_diff = float(np.abs(p_b - p_full[-(n - split):]).max())
+    b_state = checkpoint.load_state(out["b"])
+    state_diff = float((b_state.curr_pose - state.curr_pose).abs().max())
+    check(max(pose_diff, state_diff) <= 1e-5,
+          f"app: resumed poses differ by {pose_diff} (final state "
+          f"{state_diff}) > 1e-5")
+    b_rows = [json.loads(line) for line in open(out["b_metrics"])]
+    got = [r["surfels"] for r in b_rows if "frame" in r]
+    want = [r["surfels"] for r in frame_rows[split - 1:]]
+    check(got == want, f"app: resumed surfel counts {got}, "
+          f"uninterrupted {want}")
+    print(f"  resume after frame {split - 1}: frames {split}..{n - 1} of "
+          f"the resumed run vs the uninterrupted run: max |pose diff| "
+          f"{pose_diff:.3e} (final state {state_diff:.3e}; <= 1e-5), "
+          f"surfel counts equal at every frame ({got[-1]} at the end); "
+          f"resumed run {res_s:.1f} s; launches K1 "
+          f"{launches_b['preprocess_depth']}, K3 "
+          f"{launches_b['irls_solve']}", flush=True)
+    results["app first part"] = launches_a
+    results["app resume"] = launches_b
     print(f"[app] ok: run_tum and resume on {card}", flush=True)
-    return results
+    return results, data, wall_med
 
 
 def _run_frames(slam, frames, batch: bool, counters):
@@ -1383,6 +1420,261 @@ def phase_corridor(card):
     return results
 
 
+def _paced_stream(frames, hz):
+    """A producer thread writes `frames` with the port's SFRD writer onto
+    one end of a socket pair at `hz`, each stamped with time.time() as it
+    is sent.  -> (reader file, reader socket, thread, stamps, errors)."""
+    import socket
+    import threading
+
+    from staticfusion_tpu_torch.io import stream
+    a, b = socket.socketpair()
+    a.settimeout(LIVE_TIMEOUT)
+    b.settimeout(LIVE_TIMEOUT)
+    fa, fb = a.makefile("wb"), b.makefile("rb")
+    stamps, errors = [], []
+    rows, cols = frames[0][1].shape
+
+    def produce():
+        try:
+            stream.write_stream_header(fa, cols, rows)
+            fa.flush()
+            t0 = time.time()
+            for i, (rgb, depth_mm, _) in enumerate(frames):
+                delay = t0 + i / hz - time.time()
+                if delay > 0:
+                    time.sleep(delay)
+                stamps.append(time.time())
+                stream.write_frame(fa, rgb, depth_mm, stamps[-1])
+                fa.flush()
+            stream.write_stream_end(fa)
+            fa.flush()
+        except OSError as e:
+            errors.append(e)
+        finally:
+            fa.close()
+            a.close()
+
+    t = threading.Thread(target=produce, daemon=True)
+    t.start()
+    return fb, b, t, stamps, errors
+
+
+def _camera_run(frames, gt, latest_only, counters):
+    """run_camera's loop on the card over a paced socket stream of
+    `frames`: -> (slam, source, latencies s, launches, stamps, seconds).
+    The launch counts are set to 0 before the run."""
+    import torch
+
+    from staticfusion_tpu_torch.apps import run_camera
+    from staticfusion_tpu_torch.config import SFConfig
+    from staticfusion_tpu_torch.io.stream import StreamSource
+    from staticfusion_tpu_torch.pipeline.system import SlamSystem
+    slam = SlamSystem(SFConfig())
+    for fn in counters.values():
+        fn.launches = 0
+    fb, sock, t, stamps, errors = _paced_stream(frames, LIVE_HZ)
+    try:
+        # The synthetic world's back wall sits at the sensor's 3 m gate, so
+        # the range gate is lifted as in tests/test_stream.py.
+        src = StreamSource(fb, latest_only=latest_only, max_distance_m=100.0)
+        t0 = time.perf_counter()
+        lat = run_camera.run_loop(slam, src, log_every=20)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t.join(LIVE_TIMEOUT)
+    finally:
+        fb.close()
+        sock.close()
+    check(not t.is_alive(), "live: the producer thread did not finish")
+    check(not errors, f"live: the producer failed: {errors}")
+    check(len(stamps) == len(frames), f"live: {len(stamps)} frames sent")
+    return (slam, src, lat, {k: fn.launches for k, fn in counters.items()},
+            stamps, run_s)
+
+
+def _fetch(base, path):
+    return urllib.request.urlopen(base + path, timeout=5).read()
+
+
+def phase_live(card, main_run, data, app_wall_med):
+    """The live path and the viewers on the card (phase 11 of the module
+    docstring).  Returns {run: {"launches": ...}}."""
+    import torch
+
+    from staticfusion_tpu_torch.apps import run_camera, run_sequence
+    from staticfusion_tpu_torch.config import SFConfig
+    from staticfusion_tpu_torch.fusion import texelmap
+    from staticfusion_tpu_torch.fusion.surfels import SurfelMap
+    from staticfusion_tpu_torch.io import native
+    from staticfusion_tpu_torch.io.ply import load_ply_count
+    from staticfusion_tpu_torch.viz.render import MODES, colorize, render_view
+    t_phase = time.perf_counter()
+    counters = _counters()
+    cfg = SFConfig()
+    n = LIVE_FRAMES
+    source = run_camera.SyntheticSource(cfg, n)
+    frames, gt = source.frames, source.gt
+    results = {}
+
+    # (a) run_camera over a paced stream: replay, then drop-to-latest.
+    slam, src, lat, launches, stamps, run_s = _camera_run(frames, gt, False,
+                                                          counters)
+    _app_launch_check("live replay", launches, n)
+    ate = slam.ate(np.asarray(stamps), gt)
+    check(len(slam.poses) == n - 1, f"live replay: {len(slam.poses)} poses")
+    check(np.isfinite(ate) and ate < ATE_LIMIT,
+          f"live replay: ATE {ate} m >= {ATE_LIMIT}")
+    ms = 1e3 * np.asarray(lat)
+    print(f"[live] replay: run_camera over a {LIVE_HZ:.0f} Hz socket stream "
+          f"of {n} QVGA frames (F=4 post 2): {len(slam.poses)} poses, ATE "
+          f"{ate:.5f} m (< {ATE_LIMIT}); capture->pose latency median "
+          f"{np.median(ms):.3f} ms, p90 {np.quantile(ms, 0.9):.3f} ms "
+          f"(frames queue: replay delivers every frame); run {run_s:.2f} s "
+          f"({1e3 * run_s / n:.3f} ms/frame); launches K1 "
+          f"{launches['preprocess_depth']}, K3 {launches['irls_solve']}, K2 "
+          f"{launches['spd_solve']}; on {card}", flush=True)
+    results["live replay"] = {"launches": launches}
+
+    slam, src, lat, launches, stamps, run_s = _camera_run(frames, gt, True,
+                                                          counters)
+    delivered = len(lat)
+    check(src.received == n, f"live: {src.received} frames received")
+    check(delivered + src.dropped == src.received,
+          f"live: delivered {delivered} + dropped {src.dropped} != "
+          f"received {src.received}")
+    check(delivered >= 2, f"live: {delivered} frames delivered")
+    _app_launch_check("live drop-to-latest", launches, delivered)
+    slam._materialize_poses()
+    check(all(np.isfinite(p).all() for p in slam.poses),
+          "live: non-finite pose")
+    ate = slam.ate(np.asarray(stamps), gt)
+    ms = 1e3 * np.asarray(lat)
+    print(f"  drop-to-latest: received {src.received}, delivered "
+          f"{delivered}, dropped {src.dropped}; capture->pose latency "
+          f"median {np.median(ms):.3f} ms, p90 {np.quantile(ms, 0.9):.3f} "
+          f"ms; ATE over the delivered frames {ate:.5f} m (not gated); run "
+          f"{run_s:.2f} s; launches K1 {launches['preprocess_depth']}, K3 "
+          f"{launches['irls_solve']}", flush=True)
+    results["live drop-to-latest"] = {"launches": launches}
+
+    # (b) render_view of the main path's final map, card vs CPU.
+    main_slam = main_run[0]
+    smap, pose = main_slam.state.smap, main_slam.state.curr_pose
+    smap_c = SurfelMap(*(t.cpu() for t in smap))
+    thr = cfg.fusion.confidence_threshold
+    view_g = render_view(smap, pose, thr, cfg)
+    view_c = render_view(smap_c, pose.cpu(), thr, cfg)
+    winners = [texelmap.render_texel_images(
+        m, texelmap.project_surfels(m, p, cfg),
+        torch.zeros((), dtype=torch.int32, device=p.device), cfg,
+        conf_threshold=thr, z_min=cfg.fusion.predict_z_min,
+        time_delta=float("inf")).idx.cpu()
+        for m, p in ((smap, pose), (smap_c, pose.cpu()))]
+    n_winners = int((winners[0] != winners[1]).sum())
+    hit_g, hit_c = view_g.depth.cpu() > 0, view_c.depth > 0
+    agree = float((hit_g == hit_c).float().mean())
+    both = (hit_g & hit_c).numpy()
+    diffs = {}
+    for mode in MODES:
+        a = colorize(view_g, mode, cfg).astype(np.int32)
+        b = colorize(view_c, mode, cfg).astype(np.int32)
+        diffs[mode] = np.abs(a - b).max(axis=-1)[both]
+    rgb_ok = float(np.mean(diffs["rgb"] <= RENDER_RGB_TOL))
+    check(n_winners == 0, f"render: {n_winners} texel winners differ "
+          "between card and CPU")
+    check(agree >= RENDER_HIT_AGREE, f"render: hit masks agree at "
+          f"{agree:.5f} < {RENDER_HIT_AGREE} of pixels")
+    check(rgb_ok >= RENDER_RGB_SHARE, f"render: rgb within "
+          f"{RENDER_RGB_TOL}/255 at {rgb_ok:.6f} < {RENDER_RGB_SHARE} of "
+          f"common hits")
+    render_ms = cuda_ms(lambda: render_view(smap, pose, thr, cfg),
+                        RENDER_REPS)
+    print(f"  render_view of the main path's final map "
+          f"({int(smap.count())} surfels, {smap.capacity} slots) at its "
+          f"final pose, conf >= {thr}: card vs CPU identical texel "
+          f"winners ({winners[0].numel()} texels), hit masks agree at "
+          f"{agree:.5f} of pixels ({float(hit_g.float().mean()):.4f} hit), "
+          f"rgb within {RENDER_RGB_TOL}/255 at {rgb_ok:.6f} of "
+          f"{int(both.sum())} common hits; max |diff| (/255) and pixels "
+          f"over {RENDER_RGB_TOL}/255 by mode: "
+          + ", ".join(f"{m} {int(d.max()) if d.size else 0} "
+                      f"({int((d > RENDER_RGB_TOL).sum())})"
+                      for m, d in diffs.items())
+          + f"; {render_ms:.3f} ms per render_view on the card (CUDA "
+          f"events, mean over {RENDER_REPS})", flush=True)
+
+    # (c) run_sequence with the three viewer flags over the app dataset.
+    tmp = os.path.dirname(data)
+    out = {k: os.path.join(tmp, v) for k, v in (
+        ("html", "live.html"), ("viz", "panels"), ("ply", "live.ply"),
+        ("traj", "live.txt"))}
+    viewers = []
+    try:
+        launches, _, wall, run_s = _app_run(
+            [lambda a: viewers.append(run_sequence.main(a)), data,
+             "--res-factor", "2", "--depth-scale", "5000", "--html",
+             out["html"], "--viz", out["viz"], "--live", "0",
+             "--live-every", "5", "--ply", out["ply"], "--out",
+             out["traj"], "--metrics", os.devnull], counters)
+        viewer = viewers[0]
+        check(viewer is not None, "live: run_sequence --live returned no "
+              "viewer")
+        base = f"http://127.0.0.1:{viewer.port}"
+        png = _fetch(base, "/frame.png")
+        met = json.loads(_fetch(base, "/metrics.json"))
+        params = json.loads(_fetch(base, "/params.json"))
+    finally:
+        for v in viewers:
+            if v is not None:
+                v.close()
+    napp = APP_FRAMES
+    _app_launch_check("live run_sequence", launches, napp)
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "live: /frame.png is no PNG")
+    last = (napp - 1) // 5 * 5     # the last frame the view refreshed on
+    check(met.get("frame", -1) >= last and met.get("surfels", 0) > 0,
+          f"live: /metrics.json {met}, expected frame >= {last}")
+    check(params == {"conf": cfg.fusion.confidence_threshold,
+                     "depth": cfg.fusion.depth_max, "pause": False},
+          f"live: /params.json {params}")
+    html = open(out["html"]).read()
+    start = html.index("const DATA = ") + len("const DATA = ")
+    page = json.loads(html[start:html.index(";\n", start)])
+    n_pts = len(base64.b64decode(page["pos"])) // 12
+    n_traj = [len(base64.b64decode(t["pts"])) // 12 for t in page["trajs"]]
+    n_ply = load_ply_count(out["ply"])
+    check(n_pts == n_ply > 0, f"live: the page has {n_pts} points, the "
+          f"PLY {n_ply}")
+    check(n_traj == [napp - 1, napp], f"live: trajectories of {n_traj} "
+          f"points, expected [{napp - 1}, {napp}]")
+    names = sorted(os.listdir(out["viz"]))
+    check(names == [f"frame_{i:05d}.png" for i in range(1, napp)],
+          f"live: panel files {names[:3]}..., expected frames 1..{napp - 1}")
+    for name in names:
+        img = native.decode_png(os.path.join(out["viz"], name))
+        check(img is not None and img.shape == (2 * cfg.rows, 2 * cfg.cols,
+                                                3) and img.dtype == np.uint8,
+              f"live: {name} decodes to "
+              f"{None if img is None else (img.shape, img.dtype)}")
+    wall_med = float(np.median(wall[1:]))
+    print(f"  run_sequence --html --viz --live 0 --live-every 5 (QVGA, "
+          f"--res-factor 2): page with {n_pts} points (= the PLY's) and "
+          f"trajectories of {n_traj[0]} and {n_traj[1]} poses; "
+          f"{len(names)} panel PNGs of {2 * cfg.rows}x{2 * cfg.cols}, each "
+          f"read back by the native decoder; after the run /frame.png "
+          f"({len(png)} bytes), /metrics.json (frame {met['frame']}, "
+          f"surfels {met['surfels']}) and /params.json answer; app wall "
+          f"median {wall_med:.3f} ms/frame (run_tum in the app phase "
+          f"{app_wall_med:.3f}); run {run_s:.2f} s; launches K1 "
+          f"{launches['preprocess_depth']}, K3 {launches['irls_solve']}",
+          flush=True)
+    results["live run_sequence"] = {"launches": launches}
+    print(f"[live] ok: run_camera replay and drop-to-latest, render card vs "
+          f"CPU, run_sequence's viewer flags in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1411,14 +1703,17 @@ def main() -> int:
         launches, main_run = phase_main(card)
         phase_cross()
         gates = phase_gates(card)
-        gates.update({k: {"launches": v}
-                      for k, v in phase_app(card).items()})
-        gates.update(phase_branches(card))
-        gates.update(phase_loop_gates(card))
-        corridor = phase_corridor(card)
-        gates.update(corridor)
-        on = corridor["corridor on"]
-        k3["launches_per_keyframe_tick"] = on["tick_k3"] / max(on["ticks"], 1)
+        with tempfile.TemporaryDirectory(prefix="sf_app_") as app_tmp:
+            app, app_data, app_wall = phase_app(card, app_tmp)
+            gates.update({k: {"launches": v} for k, v in app.items()})
+            gates.update(phase_branches(card))
+            gates.update(phase_loop_gates(card))
+            corridor = phase_corridor(card)
+            gates.update(corridor)
+            on = corridor["corridor on"]
+            k3["launches_per_keyframe_tick"] = (on["tick_k3"]
+                                                / max(on["ticks"], 1))
+            gates.update(phase_live(card, main_run, app_data, app_wall))
         phase_profile(k1, k3, k3_systems, main_run)
     except (SmokeError, AssertionError, RuntimeError, ValueError,
             OSError) as e:

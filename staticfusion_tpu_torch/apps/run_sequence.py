@@ -7,15 +7,23 @@ The port's copy of apps/run_sequence.py, with the same flags and
       [--assoc rgbd_assoc.txt] [--depth-scale 1000] [--out traj.txt]
       [--ply map.ply] [--metrics metrics.jsonl] [--max-frames N]
       [--checkpoint state.npz] [--resume state.npz] [--loop-closure]
+      [--html map.html] [--viz DIR] [--live PORT] [--live-every 5]
       [--device cuda]
 
---html, --viz, --live and --live-every are not ported yet and raise.
+--html writes the final map and the trajectories as one WebGL page,
+--viz one panel mosaic PNG per processed frame, and --live serves the
+panels, the fused-map renders and the metrics at http://127.0.0.1:PORT/
+while the run goes (0 picks a free port); `main` returns that viewer,
+still serving the last frame, and the caller closes it.
 """
 
 import argparse
 import contextlib
 import dataclasses
 import os
+import time
+
+import numpy as np
 
 from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
                                            LoopClosureConfig, SFConfig,
@@ -27,12 +35,11 @@ from staticfusion_tpu_torch.pipeline.system import SlamSystem
 from staticfusion_tpu_torch.utils.checkpoint import (load_archive, load_state,
                                                      save_state)
 from staticfusion_tpu_torch.utils.metrics import MetricsLogger
-
-# Flags of the JAX app whose modules are not ported: (what, ROADMAP.md
-# queue 1 item).
-NOT_PORTED = {"html": ("the web viewer", 6), "viz": ("the viz panels", 6),
-              "live": ("the live view", 6),
-              "live_every": ("the live view's refresh", 6)}
+from staticfusion_tpu_torch.viz.live import LiveViewer
+from staticfusion_tpu_torch.viz.offline import save_frame_panels
+from staticfusion_tpu_torch.viz.render import (colorize, render_view,
+                                               view_to_host)
+from staticfusion_tpu_torch.viz.webviewer import save_html
 
 
 def parser() -> argparse.ArgumentParser:
@@ -45,12 +52,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="trajectory.txt")
     ap.add_argument("--ply", default=None)
     ap.add_argument("--html", default=None,
-                    help="self-contained WebGL viewer of the final map "
-                         "(not ported)")
+                    help="self-contained WebGL viewer of the final map")
     ap.add_argument("--metrics", default=None)
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--viz", default=None,
-                    help="directory for per-frame viz panels (not ported)")
+                    help="directory for per-frame viz panels")
     ap.add_argument("--gt", default=None, help="groundtruth.txt for ATE")
     ap.add_argument("--checkpoint", default=None,
                     help="write the final SlamState (npz) here")
@@ -74,10 +80,13 @@ def parser() -> argparse.ArgumentParser:
                     help="texel factor of the post-merge clean/splat passes "
                          "at index-factor > 1 (default: config default 2)")
     ap.add_argument("--live", type=int, default=None, metavar="PORT",
-                    help="serve a live view while running (not ported)")
-    ap.add_argument("--live-every", type=int, default=None,
-                    help="refresh the --live view every N frames (not "
-                         "ported)")
+                    help="serve a live view (RGB/depth/weights/clusters "
+                         "panels, fused-map renders and metrics) at "
+                         "http://127.0.0.1:PORT while running; 0 picks a "
+                         "free port (the reference shows these panels in "
+                         "its Pangolin GUI, Utils/GUI.h:87-99)")
+    ap.add_argument("--live-every", type=int, default=5,
+                    help="refresh the --live view every N frames")
     ap.add_argument("--solver-preset", default="default",
                     choices=["default", "datasets", "ctor"],
                     help="solver parameter set: 'default' = repo defaults; "
@@ -117,11 +126,6 @@ def make_config(args) -> SFConfig:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    for name, (what, item) in NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} ({what}) is not ported to "
-                f"staticfusion_tpu_torch yet: ROADMAP.md queue 1 item {item}")
 
     is_rawlog = args.dataset_dir.endswith(".rawlog")
     if is_rawlog:
@@ -147,8 +151,19 @@ def main(argv=None):
     profile_ctx = (_profiler(args.profile, slam.device) if args.profile
                    else contextlib.nullcontext())
 
-    with profile_ctx:
-        _run_frames(args, seq, slam, logger)
+    viewer = None
+    if args.live is not None:
+        viewer = LiveViewer(args.live,
+                            conf=config.fusion.confidence_threshold,
+                            depth=config.fusion.depth_max)
+        print(f"live view: http://127.0.0.1:{viewer.port}/", flush=True)
+    try:
+        with profile_ctx:
+            _run_frames(args, seq, slam, logger, viewer)
+    except BaseException:
+        if viewer is not None:
+            viewer.close()
+        raise
 
     slam.write_trajectory(args.out)
     print(f"wrote {len(slam.poses)} poses to {args.out}")
@@ -161,16 +176,23 @@ def main(argv=None):
         print(f"ATE RMSE vs groundtruth: {ate:.4f} m")
         print(f"RPE RMSE vs groundtruth (1 frame): {rpe:.4f} m")
         logger.log(ate_rmse=ate, rpe_rmse=rpe)
+    thr = (config.fusion.confidence_threshold
+           if args.conf_threshold is None else args.conf_threshold)
     if args.ply:
-        thr = (config.fusion.confidence_threshold
-               if args.conf_threshold is None else args.conf_threshold)
         n = save_ply(args.ply, slam.full_map(), thr)
         print(f"wrote {n} surfels to {args.ply}")
+    if args.html:
+        save_html(args.html, slam.full_map(), thr,
+                  trajectory=np.asarray(slam.poses),
+                  gt_trajectory=seq.gt_poses if seq.gt_times is not None
+                  else None)
+        print(f"wrote web viewer to {args.html}")
     if args.checkpoint:
         save_state(args.checkpoint, slam.state, config,
                    archive=slam.archive)
         print(f"wrote checkpoint to {args.checkpoint}")
     logger.close()
+    return viewer
 
 
 @contextlib.contextmanager
@@ -188,15 +210,42 @@ def _profiler(out_dir: str, device):
     print(f"wrote a torch.profiler trace to {out_dir}/trace.json")
 
 
-def _run_frames(args, seq, slam, logger):
+def _run_frames(args, seq, slam, logger, viewer):
     for i, (rgb, depth_mm, ts) in enumerate(seq):
         if args.max_frames and i >= args.max_frames:
             break
+        if viewer is not None:
+            # Pause control read back into the loop (the reference polls
+            # its GUI pause checkbox every frame, FrontEnd.cpp:1285).
+            while viewer.params()["pause"]:
+                time.sleep(0.1)
         out = slam.process(rgb, depth_mm, ts)
-        if out is not None:
-            fps = 1.0 / max(slam.frame_seconds[-1], 1e-9)
-            logger.log(frame=i, surfels=int(out.surfel_count),
-                       dense=bool(out.dense), fps=fps)
+        if out is None:
+            continue
+        fps = 1.0 / max(slam.frame_seconds[-1], 1e-9)
+        logger.log(frame=i, surfels=int(out.surfel_count),
+                   dense=bool(out.dense), fps=fps)
+        if viewer is not None and i % max(args.live_every, 1) == 0:
+            # Model + ModelImg panels (Utils/GUI.h:87-99), rendered with
+            # the browser's live confidence/depth settings.
+            p = viewer.params()
+            view = view_to_host(render_view(slam.state.smap, out.curr_pose,
+                                            p["conf"], slam.config))
+            cut = view.depth <= p["depth"]
+            model = colorize(view, "phong", slam.config)
+            model_img = colorize(view, "rgb", slam.config)
+            model[~cut] = 0
+            model_img[~cut] = 0
+            viewer.update(rgb, depth_mm, out,
+                          model=model, model_img=model_img, frame=i,
+                          surfels=int(out.surfel_count),
+                          fps=round(fps, 2),
+                          conf=p["conf"], depth_cutoff=p["depth"],
+                          loop_closures=len(slam.loop_closures))
+        if args.viz:
+            os.makedirs(args.viz, exist_ok=True)
+            save_frame_panels(os.path.join(args.viz, f"frame_{i:05d}.png"),
+                              rgb, depth_mm, out)
 
 
 if __name__ == "__main__":

@@ -96,14 +96,17 @@ def project_surfels(smap: SurfelMap, pose: torch.Tensor,
 
 def render_cull(smap: SurfelMap, local: SurfelsLocal, tick: torch.Tensor,
                 config: SFConfig, conf_threshold: float = 0.0,
-                z_min: float = 0.0) -> torch.Tensor:
+                z_min: float = 0.0,
+                time_delta: float | None = None) -> torch.Tensor:
     """(capacity,) bool — surfels that enter the z-buffer render
-    (index_map.vert:48-56 culls)."""
+    (index_map.vert:48-56 culls).  `time_delta` overrides the config's
+    freshness window (None keeps it; viz passes inf)."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
+    td = fus.time_delta if time_delta is None else time_delta
     z = local.pos[:, 2]
-    fresh = (tick.to(torch.float32) - smap.last_time) <= fus.time_delta
+    fresh = (tick.to(torch.float32) - smap.last_time) <= td
     return (smap.valid & fresh & (z > z_min) & (z <= fus.depth_max)
             & (smap.conf >= conf_threshold)
             & (local.u4 >= 0) & (local.u4 < cam.width * F)
@@ -179,8 +182,11 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
                         tick: torch.Tensor, config: SFConfig,
                         conf_threshold: float = 0.0,
                         z_min: float = 0.0,
+                        time_delta: float | None = None,
                         materialize: str = "auto") -> TexelImages:
-    """Z-buffered surfel render + attribute images.  `materialize`
+    """Z-buffered surfel render + attribute images, culled as
+    `render_cull` (`time_delta` None keeps the config's freshness window;
+    viz passes inf, as the GL draw passes render the whole map).  `materialize`
     "gather" reads the attributes at the winner ids (texel-count bound),
     "scatter" has each winning surfel write its row to its texel
     (capacity bound); "auto" gathers when the texel grid is at most twice
@@ -191,7 +197,8 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
     rows4, cols4 = cam.height * F, cam.width * F
     S = rows4 * cols4
 
-    ok = render_cull(smap, local, tick, config, conf_threshold, z_min)
+    ok = render_cull(smap, local, tick, config, conf_threshold, z_min,
+                     time_delta)
     flat = torch.where(ok, local.v4 * cols4 + local.u4,
                        torch.full_like(local.u4, S))
     buf, key, winner = zbuffer(flat, local.pos[:, 2], fus.depth_max,

@@ -1,2 +1,2 @@
-"""Pose-graph optimisation (the parts of staticfusion_tpu/parallel that
-loop closure reaches)."""
+"""Pose-graph optimisation (staticfusion_tpu/parallel's posegraph on one
+device; the mesh, sharded and multi-process modules are not ported)."""

@@ -1,9 +1,11 @@
-"""Keyframe pose-graph optimisation (port of the parts of
-staticfusion_tpu/parallel/posegraph.py that loop closure reaches).
+"""Keyframe pose-graph optimisation (port of
+staticfusion_tpu/parallel/posegraph.py on one device; its sharded solve
+is not ported).
 
 Gauss-Newton on SE(3) over fixed-capacity constraint arrays: right
 perturbations xi_i of each pose, residual r = log(Z^-1 T_i^-1 T_j), the
-adjoint Jacobians, the first pose gauge-fixed.  `optimize_chain` solves the
+adjoint Jacobians, the first pose gauge-fixed.  `optimize` solves the dense
+6M x 6M normal equations (any graph); `optimize_chain` solves the
 odometry-chain + loop layout of `keyframes.close_loop` in O(M) 6x6 block
 steps (block-tridiagonal Thomas + Woodbury).  Float32 throughout, as the
 JAX package computes it.
@@ -41,6 +43,13 @@ def empty_graph(max_poses: int, max_constraints: int,
         n_constraints=torch.tensor(0, dtype=torch.int32, device=device))
 
 
+def add_pose(g: PoseGraph, pose: torch.Tensor) -> PoseGraph:
+    """The graph with `pose` in slot n_poses (a host-side index)."""
+    poses = g.poses.clone()
+    poses[int(g.n_poses)] = pose
+    return g._replace(poses=poses, n_poses=g.n_poses + 1)
+
+
 def add_constraint(g: PoseGraph, i, j, T_ij: torch.Tensor,
                    weight: float = 1.0) -> PoseGraph:
     """The graph with constraint i_T_j of `weight` in slot n_constraints
@@ -73,6 +82,52 @@ def _residuals_and_jacobians(g: PoseGraph):
         r.shape[0], 6, 6)
     Ji = -_adjoint(se3.se3_inverse(Tj) @ Ti)
     return r, Ji, Jj
+
+
+def _normal_equations(poses: torch.Tensor, ci: torch.Tensor,
+                      cj: torch.Tensor, cT: torch.Tensor, cw: torch.Tensor):
+    """(H (M, 6, M, 6), b (M, 6)) of the constraint set.  Constraints may
+    share poses, so every add accumulates."""
+    M = poses.shape[0]
+    g_view = PoseGraph(poses=poses, n_poses=None, ci=ci, cj=cj, cT=cT,
+                       cw=cw, n_constraints=None)
+    r, Ji, Jj = _residuals_and_jacobians(g_view)
+    JiT, JjT = Ji.transpose(-1, -2), Jj.transpose(-1, -2)
+    w = cw[:, None, None]
+    Hij = w * (JiT @ Jj)
+    # Blocks as (row pose, column pose, 6, 6), permuted to (M, 6, M, 6).
+    H = torch.zeros((M, M, 6, 6), dtype=poses.dtype, device=poses.device)
+    H.index_put_((ci, ci), w * (JiT @ Ji), accumulate=True)
+    H.index_put_((cj, cj), w * (JjT @ Jj), accumulate=True)
+    H.index_put_((ci, cj), Hij, accumulate=True)
+    H.index_put_((cj, ci), Hij.transpose(-1, -2), accumulate=True)
+    b = torch.zeros((M, 6), dtype=poses.dtype, device=poses.device)
+    b.index_add_(0, ci, cw[:, None] * torch.einsum("cab,cb->ca", JiT, r))
+    b.index_add_(0, cj, cw[:, None] * torch.einsum("cab,cb->ca", JjT, r))
+    return H.permute(0, 2, 1, 3), b
+
+
+def _gn_update(poses: torch.Tensor, H: torch.Tensor, b: torch.Tensor,
+               damping: float) -> torch.Tensor:
+    M = poses.shape[0]
+    Hm = H.reshape(M * 6, M * 6)
+    # Gauge fix pose 0 + damp everything (pins untouched poses too).
+    gauge = torch.zeros(M * 6, dtype=poses.dtype, device=poses.device)
+    gauge[:6] = 1e6
+    Hm = Hm + torch.diag(gauge + damping + 1e-8)
+    dx = torch.linalg.solve_ex(Hm, -b.reshape(M * 6)).result.reshape(M, 6)
+    return poses @ se3.se3_exp(dx)
+
+
+def optimize(g: PoseGraph, iters: int = 10,
+             damping: float = 1e-6) -> PoseGraph:
+    """Gauss-Newton with gauge fix on pose 0, through the dense normal
+    equations.  Inactive constraints carry zero weight; inactive poses are
+    pinned by the damping term."""
+    for _ in range(iters):
+        H, b = _normal_equations(g.poses, g.ci, g.cj, g.cT, g.cw)
+        g = g._replace(poses=_gn_update(g.poses, H, b, damping))
+    return g
 
 
 def _solve_block_tridiag(diag: torch.Tensor, offd: torch.Tensor,
@@ -189,4 +244,23 @@ def optimize_chain(g: PoseGraph, iters: int = 10,
         else:
             dx = -_solve_block_tridiag(diag, offd, b[:, :, None])[:, :, 0]
         g = g._replace(poses=g.poses @ se3.se3_exp(dx))
+    return g
+
+
+def chain_odometry_graph(poses, odometry, weights=None, max_poses=None,
+                         max_constraints=None, device=None) -> PoseGraph:
+    """A graph from a trajectory + frame-to-frame odometry list (4x4
+    arrays or tensors): constraint k links poses k -> k+1."""
+    n = len(poses)
+    max_poses = max_poses or n
+    max_constraints = max_constraints or (2 * n)
+    g = empty_graph(max_poses, max_constraints, device=device)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+    for p in poses:
+        g = add_pose(g, t(p))
+    for k, T in enumerate(odometry):
+        w = 1.0 if weights is None else weights[k]
+        g = add_constraint(g, k, k + 1, t(T), w)
     return g

@@ -2,7 +2,7 @@
 against the JAX package's script, run_sequence end to end (trajectory,
 PLY, metrics, checkpoint, a torch.profiler trace), a resumed run against
 the uninterrupted one, a rawlog run, run_tum's defaults and result
-numbering, and the flags whose modules are not ported.
+numbering, and the viewer flags (--html, --viz, --live, --live-every).
 
 8 frames written at 640x480 and run at 160x120 (--res-factor 4), map
 capacity 1<<15, `--device cpu`.  Everything is written under pytest's
@@ -10,11 +10,15 @@ temporary directories (run_tum runs with that as its working directory);
 the native I/O library is built by g++ into one of them.
 """
 
+import base64
 import functools
 import json
 import os
 import pathlib
+import re
+import struct
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -204,17 +208,70 @@ def test_rawlog_run_lands_in_the_raw_gt_frame(sfio, tmp_path):
     assert ate_rmse(t_est, p_est, np.asarray(ts), gt) < 0.02
 
 
-@pytest.mark.parametrize("flag,item", [
-    pytest.param(["--html", "v.html"], 6, id="flag0-6"),
-    pytest.param(["--viz", "panels"], 6, id="flag1-6"),
-    pytest.param(["--live", "0"], 6, id="flag2-6"),
-    pytest.param(["--live-every", "3"], 6, id="flag4-6")])
-def test_unported_flags_raise_by_name(dataset, tmp_path, flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag[0]} .*ROADMAP.md queue 1 item {item}"):
-        run_sequence.main([str(dataset), *BASE, "--out",
-                           str(tmp_path / "t.txt"), *flag])
-    assert not (tmp_path / "t.txt").exists()
+def _png_shape(blob: bytes):
+    """(height, width) of a PNG from its IHDR."""
+    assert blob[:8] == b"\x89PNG\r\n\x1a\n"
+    return struct.unpack(">II", blob[16:24])[::-1]
+
+
+@pytest.mark.parametrize("flag", [
+    pytest.param(["--html", "v.html"], id="html"),
+    pytest.param(["--viz", "panels"], id="viz"),
+    pytest.param(["--live", "0"], id="live"),
+    pytest.param(["--live", "0", "--live-every", "3"], id="live_every")])
+def test_viewer_flags_run(sfio, dataset, tmp_path, flag, capsys):
+    """Each viewer flag runs and writes what the JAX app's does: the WebGL
+    page with the map above the threshold and both trajectories, one panel
+    mosaic per processed frame (decoded by the native decoder), or a live
+    view refreshed every --live-every frames (default 5), still serving
+    after the run until it is closed."""
+    flag = [str(tmp_path / a) if a in ("v.html", "panels") else a
+            for a in flag]
+    viewer = run_sequence.main([str(dataset), *BASE, "--out",
+                                str(tmp_path / "t.txt"), "--max-frames",
+                                "7", *flag])
+    try:
+        printed = capsys.readouterr().out
+        assert (tmp_path / "t.txt").exists()
+        if flag[0] == "--html":
+            html = (tmp_path / "v.html").read_text()
+            assert "wrote web viewer to" in printed
+            start = html.index("const DATA = ") + len("const DATA = ")
+            data = json.loads(html[start:html.index(";\n", start)])
+            assert len(data["trajs"]) == 2     # estimate and ground truth
+            n_traj = len(base64.b64decode(data["trajs"][0]["pts"])) // 12
+            assert n_traj == 6
+            assert len(base64.b64decode(data["pos"])) > 0
+        elif flag[0] == "--viz":
+            names = sorted(os.listdir(tmp_path / "panels"))
+            assert names == [f"frame_{i:05d}.png" for i in range(1, 7)]
+            for name in names:
+                img = native.decode_png(str(tmp_path / "panels" / name))
+                assert img.shape == (240, 320, 3) and img.dtype == np.uint8
+                assert img.any()
+        else:
+            every = 3 if "--live-every" in flag else 5
+            m = re.search(r"live view: (http://127\.0\.0\.1:\d+)/", printed)
+            assert m, "the app prints the live-view URL"
+            base = m.group(1)
+            met = json.loads(urllib.request.urlopen(
+                base + "/metrics.json", timeout=5).read())
+            assert met["frame"] == max(i for i in range(1, 7)
+                                       if i % every == 0)
+            assert met["surfels"] > 0 and set(met) == {
+                "frame", "surfels", "fps", "conf", "depth_cutoff",
+                "loop_closures"}
+            png = urllib.request.urlopen(base + "/frame.png",
+                                         timeout=5).read()
+            # rgb | depth | model over weights | labels | model_img.
+            assert _png_shape(png) == (2 * 120, 3 * 160)
+            params = json.loads(urllib.request.urlopen(
+                base + "/params.json", timeout=5).read())
+            assert params == {"conf": 0.25, "depth": 4.5, "pause": False}
+    finally:
+        if viewer is not None:
+            viewer.close()
+    assert (viewer is None) == (flag[0] != "--live")
 
 
 def test_loop_closure_flag_runs_and_prints_closures(dataset, tmp_path,
