@@ -85,15 +85,34 @@ Phases (each prints one line; any failure exits non-zero):
      /metrics.json and /params.json answer after the run (requests time
      out after 5 s; every socket read and thread join after 60 s); its
      wall ms/frame beside run_tum's;
-  12. profile: torch.profiler counts the device kernels of one K3 call
+  12. parallel: the multi-device layer.  A probe of which collectives
+     Gloo runs on CUDA tensors (two threads; every pair that
+     parallel/mesh.py::GLOO_CUDA hands Gloo unstaged must pass), with the
+     time of a z-buffer-sized MIN on the card and staged through the
+     host; the one-process reference on the card (bootstrap_step +
+     slam_step at QVGA, F=4, post 2, capacity 1 << 18, so the bootstrap's
+     98304-slot tier, no tiers after it; 10 frames of the main path's
+     sequence); then for meshes 1x2 and 2x1 two rank processes of
+     `python -m staticfusion_tpu_torch.apps.run_multihost` on cuda:0 over
+     Gloo and a FileStore: every rank's poses equal rank 0's within 1e-6,
+     the first steady step within 1e-4 and every pose within 6e-3 of the
+     one-process run, surfels within 1%, the state on the card, K1 once
+     per frame and K3 as often as in one process on every rank (every
+     solve through K3: no plain version, no CPU fallback), K2 never; per
+     rank its slots and surfels, its row block, its launches, its
+     collective calls and MB by helper and its median ms/frame beside the
+     one-process median.  Then `run_multihost --spawn 2` once, and
+     `optimize_sharded` on 2 ranks (threads of this process on the card)
+     against `optimize` within 1e-5, with the constraints per rank;
+  13. profile: torch.profiler counts the device kernels of one K3 call
      at each level size and of one K1 call (exactly one each) and their
      device times, and the device kernels and busy time per main-path
      frame over 3 more frames.  Last, because a profiler run before the
      main path coincided with slower frames;
 then the script's total time, a JSON line with the kernels (their
 launches on the main path, in each gate, app, branches, loop-gate,
-corridor and live run, and K3's launches per keyframe tick of the
-corridor run),
+corridor, live and parallel run (summed over the mesh's ranks), and K3's
+launches per keyframe tick of the corridor run),
 and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -158,6 +177,17 @@ RENDER_HIT_AGREE = 0.99
 RENDER_RGB_TOL = 2
 RENDER_RGB_SHARE = 0.999
 RENDER_REPS = 20
+# Phase 12 (parallel): rank processes of run_multihost on the one card.
+PAR_MESHES = ((1, 2), (2, 1))
+PAR_FRAMES = 10
+PAR_CAPACITY = 1 << 18
+PAR_FIRST_TOL = 1e-4    # tests/test_sharding.py's single-step tolerance
+PAR_POSE_TOL = 6e-3     # its per-frame tolerance over a sequence
+PAR_COUNT_TOL = 0.01
+PAR_RANK_TOL = 1e-6     # the ranks of one run print the same poses
+PAR_GRAPH_POSES = 64
+PAR_GRAPH_TOL = 1e-5
+PAR_TIMEOUT = 300       # seconds per rank process
 # tests/test_accuracy.py's gates: (name, profile, width, height, capacity,
 # index_factor, frames, ATE limit, IoU floor or None).  Seed 0.
 GATES = (
@@ -1675,6 +1705,318 @@ def phase_live(card, main_run, data, app_wall_med):
     return results
 
 
+def _gloo_probe():
+    """Which collectives ProcessGroupGloo accepts on CUDA tensors: two
+    threads, each a rank of one group over a HashStore, try all-reduce
+    SUM/MIN/MAX and all-gather on float32 and int64 tensors on the card,
+    then time a MIN all-reduce of the F=4 QVGA z-buffer (1228800 int64)
+    on the card and staged through host copies (mean of 5 after 1).
+    -> ({case: "ok" / "wrong" / the error's first line}, {way: ms})."""
+    import threading
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    store = dist.HashStore()
+    cases = [(op, dt) for op in ("sum", "min", "max", "gather")
+             for dt in (torch.float32, torch.int64)]
+    verdicts, times = [{}, {}], [{}, {}]
+
+    def rank(r):
+        opts = dist.ProcessGroupGloo._Options()
+        opts._timeout = timedelta(seconds=20)
+        opts._devices = [dist.ProcessGroupGloo.create_device(
+            hostname="127.0.0.1")]
+        pg = dist.ProcessGroupGloo(dist.PrefixStore("probe", store), r, 2,
+                                   opts)
+        for op, dt in cases:
+            x = torch.tensor([3 * r + 1, 5 - r], dtype=dt, device="cuda")
+            try:
+                if op == "gather":
+                    outs = [torch.empty_like(x) for _ in range(2)]
+                    pg.allgather([outs], [x]).wait()
+                    got = torch.cat(outs).cpu().tolist()
+                    want = [1, 5, 4, 4]
+                else:
+                    o = dist.AllreduceOptions()
+                    o.reduceOp = {"sum": dist.ReduceOp.SUM,
+                                  "min": dist.ReduceOp.MIN,
+                                  "max": dist.ReduceOp.MAX}[op]
+                    pg.allreduce([x], o).wait()
+                    torch.cuda.synchronize()
+                    got = x.cpu().tolist()
+                    want = {"sum": [5, 9], "min": [1, 4],
+                            "max": [4, 5]}[op]
+                verdicts[r][f"{op} {str(dt)[6:]}"] = (
+                    "ok" if got == want else f"wrong {got}")
+            except RuntimeError as e:
+                verdicts[r][f"{op} {str(dt)[6:]}"] = str(e).splitlines()[0]
+        o = dist.AllreduceOptions()
+        o.reduceOp = dist.ReduceOp.MIN
+        z = torch.arange(1228800, dtype=torch.int64, device="cuda") * (r + 1)
+        for way in ("on the card", "staged"):
+            for rep in range(6):
+                if rep == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                if way == "staged":
+                    buf = z.cpu()
+                    pg.allreduce([buf], o).wait()
+                    buf.to("cuda")
+                else:
+                    pg.allreduce([z.clone()], o).wait()
+            torch.cuda.synchronize()
+            times[r][way] = 1e3 * (time.perf_counter() - t0) / 5
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    check(not any(t.is_alive() for t in threads), "gloo probe: a rank hung")
+    return verdicts[0], times[0]
+
+
+def _rank_runs(argv, n, tmp, tag):
+    """n run_multihost worker processes on the card over a FileStore in
+    `tmp` -> [(POSE dict, STATS dict)] by rank.  Each is killed after
+    PAR_TIMEOUT s."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    base = [sys.executable, "-m", "staticfusion_tpu_torch.apps.run_multihost",
+            "--store", os.path.join(tmp, f"store_{tag}"),
+            "--num-processes", str(n)] + argv
+    procs = [subprocess.Popen(base + ["--process-id", str(i)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=here) for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    runs = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"{tag}: rank {i} exited {p.returncode}:\n{out[-3000:]}")
+        poses, stats = {}, None
+        for line in out.splitlines():
+            if line.startswith("POSE "):
+                k, *v = line[5:].split()
+                poses[int(k)] = np.asarray([float(x) for x in v]).reshape(4,
+                                                                          4)
+            elif line.startswith("STATS "):
+                stats = json.loads(line[6:])
+        check(stats is not None, f"{tag}: rank {i} printed no STATS")
+        runs.append((poses, stats))
+    return runs
+
+
+def _graph_on_card(n_poses):
+    """A drifted odometry chain of n_poses on the card with 2 n_poses
+    constraints: the chain, loops back to pose 0 every 8 poses, padding."""
+    import torch
+
+    from staticfusion_tpu_torch.geometry.se3 import se3_exp
+    from staticfusion_tpu_torch.parallel import posegraph as pg
+    rng = np.random.default_rng(7)
+    g = pg.empty_graph(n_poses, 2 * n_poses, device="cuda")
+    exp = lambda x: se3_exp(torch.as_tensor(x, dtype=torch.float32,
+                                            device="cuda"))
+    gt = [torch.eye(4, device="cuda")]
+    for _ in range(n_poses - 1):
+        gt.append(gt[-1] @ exp(0.05 * rng.normal(size=6)))
+    drift = exp([0.004, 0.0, -0.003, 0.001, 0.0015, 0.0])
+    pose = gt[0]
+    for k in range(n_poses):
+        g = pg.add_pose(g, pose)
+        if k + 1 < n_poses:
+            T = torch.linalg.inv(gt[k]) @ gt[k + 1]
+            g = pg.add_constraint(g, k, k + 1, T @ drift)
+            pose = pose @ T @ drift
+    for k in range(8, n_poses, 8):
+        g = pg.add_constraint(g, 0, k, torch.linalg.inv(gt[0]) @ gt[k], 8.0)
+    return g
+
+
+def phase_parallel(card):
+    """The multi-device layer on the card (phase 12 of the module
+    docstring).  Returns {run: {"launches": ...}}."""
+    import threading
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
+                                               SFConfig)
+    from staticfusion_tpu_torch.io import synthetic
+    from staticfusion_tpu_torch.parallel import mesh as mesh_lib
+    from staticfusion_tpu_torch.parallel import posegraph as pg
+    from staticfusion_tpu_torch.pipeline.step import (Frame, bootstrap_step,
+                                                      slam_step)
+    t_phase = time.perf_counter()
+    counters = _counters()
+    results = {}
+
+    probe, probe_ms = _gloo_probe()
+    print("[parallel] Gloo on CUDA tensors: " + ", ".join(
+        f"{k} {v}" for k, v in probe.items()) + "; MIN of 1228800 int64: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in probe_ms.items()),
+        flush=True)
+    # The helpers hand Gloo the CUDA tensors of these pairs unstaged.
+    for op, dt in mesh_lib.GLOO_CUDA:
+        check(probe[f"{op} {str(dt)[6:]}"] == "ok",
+              f"Gloo refuses {op} on CUDA {dt}, which mesh.GLOO_CUDA lists")
+
+    # One process on the card, no tiers (the sharded runs keep the
+    # bootstrap's capacity): the reference of every mesh.
+    cfg = SFConfig(camera=CameraConfig(width=320, height=240),
+                   fusion=FusionConfig(capacity=PAR_CAPACITY))
+    frames, gt = synthetic.make_sequence(cfg, PAR_FRAMES, TWIST)
+    dev = lambda i: Frame(*[torch.as_tensor(a, device="cuda")
+                            for a in frames[i][:2]])
+    for fn in counters.values():
+        fn.launches = 0
+    ref_poses, ms_ref = {}, []
+    for i in range(1, PAR_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            state, out = bootstrap_step(dev(0), dev(1),
+                                        torch.eye(4, device="cuda"), cfg)
+        else:
+            state, out = slam_step(state, dev(i), cfg)
+        torch.cuda.synchronize()
+        ms_ref.append(1e3 * (time.perf_counter() - t0))
+        ref_poses[i] = out.curr_pose.cpu().numpy()
+    ref_launches = {k: fn.launches for k, fn in counters.items()}
+    ref_count = int(out.surfel_count)
+    ref_med = float(np.median(ms_ref[2:]))
+    print(f"[parallel] one process: {PAR_FRAMES} frames QVGA F=4 post 2 at "
+          f"capacity {state.smap.capacity} (no tiers): surfels {ref_count}, "
+          f"launches {ref_launches}, median {ref_med:.1f} ms/frame over "
+          f"frames 3..{PAR_FRAMES - 1}", flush=True)
+
+    argv = ["--frames", str(PAR_FRAMES), "--width", "320", "--height", "240",
+            "--capacity", str(PAR_CAPACITY), "--device", "cuda"]
+    with tempfile.TemporaryDirectory(prefix="sf_parallel_") as tmp:
+        for n_pix, n_map in PAR_MESHES:
+            tag = f"parallel {n_pix}x{n_map}"
+            t0 = time.perf_counter()
+            runs = _rank_runs(argv + ["--n-pix", str(n_pix), "--n-map",
+                                      str(n_map)], n_pix * n_map, tmp,
+                              f"{n_pix}x{n_map}")
+            run_s = time.perf_counter() - t0
+            total = {}
+            for r, (poses, st) in enumerate(runs):
+                check(sorted(poses) == sorted(ref_poses),
+                      f"{tag}: rank {r} posed frames {sorted(poses)}")
+                check(st["device"].startswith("cuda"),
+                      f"{tag}: rank {r} state on {st['device']}")
+                rank_d = max(float(np.abs(poses[k] - runs[0][0][k]).max())
+                             for k in poses)
+                check(rank_d <= PAR_RANK_TOL,
+                      f"{tag}: rank {r} differs from rank 0 by {rank_d}")
+                first = float(np.abs(poses[2] - ref_poses[2]).max())
+                worst = max(float(np.abs(poses[k] - ref_poses[k]).max())
+                            for k in poses)
+                check(first <= PAR_FIRST_TOL,
+                      f"{tag}: first step differs by {first}")
+                check(worst <= PAR_POSE_TOL,
+                      f"{tag}: a pose differs by {worst}")
+                dc = abs(st["surfels_total"] - ref_count) / ref_count
+                check(dc <= PAR_COUNT_TOL,
+                      f"{tag}: surfels {st['surfels_total']} vs {ref_count}")
+                la = st["launches"]
+                check(la["preprocess_depth"] == PAR_FRAMES - 1,
+                      f"{tag}: rank {r} K1 launched "
+                      f"{la['preprocess_depth']} times")
+                check(la["irls_solve"] == ref_launches["irls_solve"],
+                      f"{tag}: rank {r} K3 launched {la['irls_solve']} times "
+                      f"vs {ref_launches['irls_solve']} in one process: a "
+                      "solve did not run K3")
+                check(la["spd_solve"] == 0 and la["spd_inverse"] == 0,
+                      f"{tag}: rank {r} K2 launched standalone: {la}")
+                for k, v in la.items():
+                    total[k] = total.get(k, 0) + v
+                med = float(np.median(st["ms_per_frame"][3:]))
+                comm = ", ".join(f"{h} {c} calls {b / 1e6:.2f} MB"
+                                 for h, (c, b) in st["comm"].items())
+                print(f"  {tag} rank {r} (pix {st['pix']}, map {st['map']})"
+                      f": slots [{st['slots'][0]}, {st['slots'][1]}) holding "
+                      f"{st['surfels']} surfels of {st['surfels_total']}, "
+                      f"rows [{st['rows'][0]}, {st['rows'][1]}) = "
+                      f"{st['pixels']} pixels; K1 {la['preprocess_depth']}, "
+                      f"K3 {la['irls_solve']} launches; {comm}; median "
+                      f"{med:.1f} ms/frame vs {ref_med:.1f} in one process; "
+                      f"first step {first:.3e}, worst pose {worst:.3e}",
+                      flush=True)
+                print(f"    work {st['work']}", flush=True)
+            results[tag] = {"launches": total}
+            print(f"[parallel] ok: {tag} on {card}: {n_pix * n_map} rank "
+                  f"processes on cuda:0 over Gloo, {run_s:.1f} s", flush=True)
+
+        # The launcher's own spawn mode, once.
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "staticfusion_tpu_torch.apps.run_multihost",
+             "--spawn", "2"], capture_output=True, text=True, env=env,
+            cwd=here, timeout=PAR_TIMEOUT)
+        out = p.stdout + p.stderr
+        check(p.returncode == 0 and "FINAL err_vs_gt=" in out
+              and "proc 0/2:" in out,
+              f"run_multihost --spawn 2 exited {p.returncode}:\n"
+              f"{out[-3000:]}")
+        final = [l for l in out.splitlines() if l.startswith("FINAL")][0]
+        print(f"[parallel] ok: run_multihost --spawn 2 on the card in "
+              f"{time.perf_counter() - t0:.1f} s: {final}", flush=True)
+
+    # optimize_sharded on 2 ranks (threads of this process on the card)
+    # against the dense optimize.
+    g = _graph_on_card(PAR_GRAPH_POSES)
+    dense = pg.optimize(g, iters=8).poses
+    store = dist.HashStore()
+    got, errors = {}, {}
+
+    def rank(r):
+        try:
+            mesh = mesh_lib.make_mesh(1, 2, r, store, timedelta(seconds=60),
+                                      device="cuda")
+            got[r] = (pg.optimize_sharded(g, mesh, iters=8).poses, mesh)
+        except RuntimeError as e:
+            errors[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"optimize_sharded: ranks failed or hung: {errors}")
+    for r, (poses, mesh) in got.items():
+        d = float((poses - dense).abs().max())
+        check(d <= PAR_GRAPH_TOL,
+              f"optimize_sharded: rank {r} differs from optimize by {d}")
+        (_, C), n = next(iter(mesh.work.items()))
+        print(f"  optimize_sharded rank {r}: {n} of {C} constraints, "
+              f"|poses - optimize| {d:.3e}, {mesh.comm}", flush=True)
+    print(f"[parallel] ok: meshes {PAR_MESHES}, the launcher and "
+          f"optimize_sharded ({PAR_GRAPH_POSES} poses, 2 ranks) in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1714,6 +2056,7 @@ def main() -> int:
             k3["launches_per_keyframe_tick"] = (on["tick_k3"]
                                                 / max(on["ticks"], 1))
             gates.update(phase_live(card, main_run, app_data, app_wall))
+        gates.update(phase_parallel(card))
         phase_profile(k1, k3, k3_systems, main_run)
     except (SmokeError, AssertionError, RuntimeError, ValueError,
             OSError) as e:

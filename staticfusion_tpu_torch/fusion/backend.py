@@ -24,6 +24,7 @@ from staticfusion_tpu_torch.fusion.surfels import SurfelMap
 from staticfusion_tpu_torch.fusion.texelmap import project_surfels
 from staticfusion_tpu_torch.fusion.update import apply_updates, merge_texels
 from staticfusion_tpu_torch.geometry.se3 import se3_inverse, so3_log
+from staticfusion_tpu_torch.parallel.mesh import slot_base
 
 
 def velocity_weighting(curr_pose: torch.Tensor, last_pose: torch.Tensor,
@@ -69,7 +70,7 @@ def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
                T_odometry: torch.Tensor, raw_depth_m: torch.Tensor,
                filtered_depth_m: torch.Tensor, rgb: torch.Tensor,
                static_prob: torch.Tensor, tick: torch.Tensor,
-               config: SFConfig) -> FuseResult:
+               config: SFConfig, mesh=None) -> FuseResult:
     """One steady-state map update (Reconstruction.cpp:261-313).
 
     Even F > 1: the sparse fuse.  Otherwise, above QVGA rows (route
@@ -80,17 +81,22 @@ def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
     resolution for the solver.  Else the texel fuse: render -> texel-routed
     association -> texel merge -> window kill on the merged texels ->
     write-back and insert -> the merged texels splatted as the next
-    frame's prediction."""
+    frame's prediction.
+
+    Under a mesh `smap` is this rank's slot block: the per-surfel passes
+    run on it, the z-buffers and texel images combine over `map`, and the
+    per-pixel work on the (whole) images is the same on every rank."""
     if sparse.supports_sparse(config):
         return fuse_frame_sparse(smap, curr_pose, T_odometry, raw_depth_m,
                                  filtered_depth_m, rgb, static_prob, tick,
-                                 config)
+                                 config, mesh)
     rf = effective_route_factor(config)
     if rf > 1:
         pick = lambda a: a[::rf, ::rf]
         res = fuse_frame(smap, curr_pose, T_odometry, pick(raw_depth_m),
                          pick(filtered_depth_m), pick(rgb),
-                         pick(static_prob), tick, routed_config(config, rf))
+                         pick(static_prob), tick, routed_config(config, rf),
+                         mesh)
         up = lambda a: a.repeat_interleave(rf, dim=0).repeat_interleave(
             rf, dim=1)
         return res._replace(pred=predict.PredictedView(
@@ -99,7 +105,7 @@ def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
     last_pose = curr_pose
     curr_pose = curr_pose @ T_odometry
     weighting = velocity_weighting(curr_pose, last_pose, 1.0, config)
-    tex, local = predict_indices(smap, curr_pose, tick, config)
+    tex, local = predict_indices(smap, curr_pose, tick, config, mesh)
     upd, new = associate_texels(tex, raw_depth_m, filtered_depth_m, rgb,
                                 static_prob, curr_pose, tick, weighting,
                                 config)
@@ -108,7 +114,7 @@ def fuse_frame(smap: SurfelMap, curr_pose: torch.Tensor,
     # before clean, Reconstruction.cpp:300).
     kill_tex = window_kill_tex(merged, tick, config)
     smap = writeback_and_insert(smap, merged, upd.has, kill_tex, local, new,
-                                curr_pose, tick, config)
+                                curr_pose, tick, config, mesh)
     # The next frame predicts at this pose: splat the surviving merged
     # texels with the LOW-confidence cull.
     pred_has = (merged.has & ~kill_tex & (merged.conf >= fus.low_conf)
@@ -121,7 +127,7 @@ def fuse_frame_sparse(smap: SurfelMap, curr_pose: torch.Tensor,
                       T_odometry: torch.Tensor, raw_depth_m: torch.Tensor,
                       filtered_depth_m: torch.Tensor, rgb: torch.Tensor,
                       static_prob: torch.Tensor, tick: torch.Tensor,
-                      config: SFConfig) -> FuseResult:
+                      config: SFConfig, mesh=None) -> FuseResult:
     """Surfel-major association on the F-resolution z-buffer -> slot-space
     merge -> `post_factor` render of the merged map for the clean window
     test and the prediction splat -> lifecycle + watermark insert.  At
@@ -132,21 +138,22 @@ def fuse_frame_sparse(smap: SurfelMap, curr_pose: torch.Tensor,
     last_pose = curr_pose
     curr_pose = curr_pose @ T_odometry
     weighting = velocity_weighting(curr_pose, last_pose, 1.0, config)
-    local = project_surfels(smap, curr_pose, config)
+    local = project_surfels(smap, curr_pose, config, mesh)
     assoc = sparse.associate_sparse(smap, local, raw_depth_m,
                                     filtered_depth_m, rgb, static_prob,
-                                    curr_pose, tick, weighting, config)
+                                    curr_pose, tick, weighting, config, mesh)
     merged_map = apply_updates(smap, assoc.updates, tick)
     if cfg1.fusion.index_factor == fus.index_factor:
         tex1 = sparse.materialize_from_winners(
-            merged_map, project_surfels(merged_map, curr_pose, config),
-            assoc.is_winner, assoc.flat, config)
+            merged_map, project_surfels(merged_map, curr_pose, config, mesh),
+            assoc.is_winner, assoc.flat, config, mesh)
     else:
-        tex1, _ = predict_indices(merged_map, curr_pose, tick, cfg1)
+        tex1, _ = predict_indices(merged_map, curr_pose, tick, cfg1, mesh)
     kill_tex = window_kill_tex(tex1, tick, cfg1)
-    killed = kill_mask_from_tex(kill_tex, tex1.idx, merged_map.capacity)
+    killed = kill_mask_from_tex(kill_tex, tex1.idx, merged_map.capacity,
+                                slot_base(merged_map.capacity, mesh)[1])
     smap_out = sparse.lifecycle_and_insert(merged_map, killed, assoc.new,
-                                           tick, config)
+                                           tick, config, mesh)
     pred_has = (tex1.has & ~kill_tex & (tex1.conf >= fus.low_conf)
                 & (tex1.z > fus.predict_z_min))
     pred = predict.splat_from_texels(tex1._replace(has=pred_has), cfg1)

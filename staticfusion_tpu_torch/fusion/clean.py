@@ -13,6 +13,7 @@ from staticfusion_tpu_torch.fusion.association import NewSurfels
 from staticfusion_tpu_torch.fusion.surfels import (SurfelMap,
                                                    append_at_watermark)
 from staticfusion_tpu_torch.fusion.texelmap import SurfelsLocal, TexelImages
+from staticfusion_tpu_torch.parallel.mesh import slot_base
 
 
 def _axis_weight(off: int, frac: torch.Tensor, F: int) -> torch.Tensor:
@@ -81,11 +82,13 @@ def window_kill_tex(tex: TexelImages, tick: torch.Tensor,
 
 
 def kill_mask_from_tex(kill_tex: torch.Tensor, idx: torch.Tensor,
-                       capacity: int) -> torch.Tensor:
-    """Texel kill verdicts -> (capacity,) slot mask; non-killing texels
-    route to the sentinel slot `capacity`."""
-    tgt = torch.where(kill_tex.reshape(-1), idx.reshape(-1),
-                      torch.full_like(idx.reshape(-1), capacity))
+                       capacity: int, base: int = 0) -> torch.Tensor:
+    """Texel kill verdicts -> (capacity,) mask of slots base..base +
+    capacity - 1; non-killing texels (and those of other slots) route to
+    the sentinel slot `capacity`."""
+    own = idx.reshape(-1) - base
+    mine = kill_tex.reshape(-1) & (own >= 0) & (own < capacity)
+    tgt = torch.where(mine, own, torch.full_like(own, capacity))
     killed = torch.zeros(capacity + 1, dtype=torch.bool, device=idx.device)
     killed[tgt] = True
     return killed[:capacity]
@@ -95,7 +98,7 @@ def writeback_and_insert(smap: SurfelMap, merged: TexelImages,
                          upd_has: torch.Tensor, kill_tex: torch.Tensor,
                          local: SurfelsLocal, new: NewSurfels,
                          pose: torch.Tensor, tick: torch.Tensor,
-                         config: SFConfig) -> SurfelMap:
+                         config: SFConfig, mesh=None) -> SurfelMap:
     """The texel fuse's map update, in three disjoint write classes:
 
     * elementwise: the age and zero-confidence kills on every slot
@@ -109,7 +112,8 @@ def writeback_and_insert(smap: SurfelMap, merged: TexelImages,
     * insert: new unstable surfels append at the `used` high-water mark.
 
     Write-back targets are render winners (valid, in [0, used)); inserts
-    go to [used, capacity)."""
+    go to [used, capacity).  Under a mesh `smap` and `local` are this
+    rank's slot block and the texel images the whole map's."""
     fus = config.fusion
     cam = config.camera
     F = fus.index_factor
@@ -137,7 +141,8 @@ def writeback_and_insert(smap: SurfelMap, merged: TexelImages,
     g = tab[fi]                                              # (cap, 15)
     writer = torch.where(wb, merged.idx,
                          torch.full_like(merged.idx, -1)).reshape(-1)[fi]
-    take = inb & (writer == torch.arange(cap, device=writer.device))
+    base = slot_base(cap, mesh)[1]
+    take = inb & (writer == base + torch.arange(cap, device=writer.device))
 
     R, t = pose[:3, :3], pose[:3, 3]
     t3 = take[:, None]
@@ -151,4 +156,4 @@ def writeback_and_insert(smap: SurfelMap, merged: TexelImages,
         torch.where(t3, g[:, 10:13] @ R.T, smap.normal),
         sel(13, smap.radius)[:, None]], dim=1)
     keep = torch.where(take, g[:, 14] < 0.5, keep_elem)
-    return append_at_watermark(rows, keep, smap.used, new, tickf)
+    return append_at_watermark(rows, keep, smap.used, new, tickf, mesh)

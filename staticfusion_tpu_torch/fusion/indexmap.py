@@ -15,7 +15,9 @@ from staticfusion_tpu_torch.fusion.texelmap import (SurfelsLocal, TexelImages,
 
 
 def predict_indices(smap: SurfelMap, pose: torch.Tensor, tick: torch.Tensor,
-                    config: SFConfig) -> Tuple[TexelImages, SurfelsLocal]:
-    """Render surfel ids + attributes into the F x texel grid."""
-    local = project_surfels(smap, pose, config)
-    return render_texel_images(smap, local, tick, config), local
+                    config: SFConfig, mesh=None
+                    ) -> Tuple[TexelImages, SurfelsLocal]:
+    """Render surfel ids + attributes into the F x texel grid (under a
+    mesh, of this rank's slot block, combined over `map`)."""
+    local = project_surfels(smap, pose, config, mesh)
+    return render_texel_images(smap, local, tick, config, mesh=mesh), local

@@ -145,12 +145,12 @@ def composite_prediction(low: PredictedView, filtered_depth_m: torch.Tensor,
 
 
 def predict_low_view(smap: SurfelMap, pose: torch.Tensor, tick: torch.Tensor,
-                     config: SFConfig) -> PredictedView:
+                     config: SFConfig, mesh=None) -> PredictedView:
     """Render + splat the LOW-confidence view (bootstrap only; steady
     frames carry the splat from the fuse)."""
     fus = config.fusion
-    local = project_surfels(smap, pose, config)
+    local = project_surfels(smap, pose, config, mesh)
     tex = render_texel_images(smap, local, tick, config,
                               conf_threshold=fus.low_conf,
-                              z_min=fus.predict_z_min)
+                              z_min=fus.predict_z_min, mesh=mesh)
     return splat_from_texels(tex, config)

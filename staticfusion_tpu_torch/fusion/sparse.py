@@ -32,6 +32,7 @@ from staticfusion_tpu_torch.fusion.texelmap import (INVALID, SurfelsLocal,
                                                     render_cull,
                                                     scatter_winner_rows,
                                                     zbuffer)
+from staticfusion_tpu_torch.parallel.mesh import slot_base
 
 # Point-to-ray distances of window candidates are bounded by the window
 # reach (~1.5 px at F=4/QVGA, <= 0.026 m); 0.1 m of range leaves 4x margin.
@@ -55,10 +56,12 @@ def supports_sparse(config: SFConfig) -> bool:
 
 
 def zbuffer_winners(smap: SurfelMap, local: SurfelsLocal, tick: torch.Tensor,
-                    config: SFConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                    config: SFConfig, mesh=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ok, is_winner): render-cull mask and per-surfel z-buffer verdict on
     the F-resolution texel grid (texelmap.zbuffer: packed depth keys, or
-    the exact two-pass order above 21 id bits; smaller id on ties)."""
+    the exact two-pass order above 21 id bits; smaller id on ties).  Under
+    a mesh, for this rank's slot block against the whole map."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
@@ -67,8 +70,9 @@ def zbuffer_winners(smap: SurfelMap, local: SurfelsLocal, tick: torch.Tensor,
     ok = render_cull(smap, local, tick, config)
     flat = torch.where(ok, local.v4 * cols4 + local.u4,
                        torch.full_like(local.u4, S))
+    cap, base = slot_base(smap.capacity, mesh)
     buf, key, _ = zbuffer(flat, local.pos[:, 2], fus.depth_max,
-                          id_bits_for(smap.capacity), S)
+                          id_bits_for(cap), S, base, mesh)
     return ok, ok & (buf[flat] == key)
 
 
@@ -98,15 +102,21 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
                      filtered_depth_m: torch.Tensor, rgb: torch.Tensor,
                      static_prob: torch.Tensor, pose: torch.Tensor,
                      tick: torch.Tensor, weighting: torch.Tensor,
-                     config: SFConfig) -> SparseAssoc:
-    """The data.vert association, surfel-major."""
+                     config: SFConfig, mesh=None) -> SparseAssoc:
+    """The data.vert association, surfel-major.  Under a mesh `smap` and
+    `local` are this rank's slot block: both z-buffers combine over `map`
+    (so the per-pixel winners, and the new-surfel mask, are the whole
+    map's), and the update records are this block's slots."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
     rows, cols = raw_depth_m.shape
     n_pix = rows * cols
     dev = raw_depth_m.device
-    ib = id_bits_for(smap.capacity)
+    cap, base = slot_base(smap.capacity, mesh)
+    if mesh is not None:
+        mesh.note("associate", cap, smap.capacity)
+    ib = id_bits_for(cap)
     t_par = torch.remainder(tick.to(torch.int64), 2)
 
     raw = frame_cloud(raw_depth_m, config)
@@ -118,7 +128,7 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
               & _neighbours_ok(raw_depth_m)
               & (raw_depth_m > 0.0) & (raw_depth_m <= fus.depth_max))
 
-    ok, is_win = zbuffer_winners(smap, local, tick, config)
+    ok, is_win = zbuffer_winners(smap, local, tick, config, mesh)
     u_act, u_ok = candidate_pixel(local.u4, t_par, F, cols)
     v_act, v_ok = candidate_pixel(local.v4, t_par, F, rows)
     pix_ok = is_win & u_ok & v_ok
@@ -154,21 +164,22 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
     # Best candidate per pixel: the smallest distance, then the smaller id
     # (the winner is INVALID where no candidate came).
     tgt = torch.where(cand, pflat, torch.full_like(pflat, n_pix))
-    _, _, best_flat = zbuffer(tgt, dist, DIST_CAP, ib, n_pix)
+    _, _, best_flat = zbuffer(tgt, dist, DIST_CAP, ib, n_pix, base, mesh)
     best_id = best_flat.reshape(rows, cols)
     matched = active & (best_id != INVALID)
     is_new = active & (best_id == INVALID)
 
     # Update records, pixel -> slot: unique slots by construction; the
-    # unmatched rows go to the sentinel row `capacity`.
+    # unmatched rows (and those of another rank's slots) go to the
+    # sentinel row `capacity`.
     radial = radial_confidence(rows, cols, cam.cx, cam.cy, dev)
     meas_conf = torch.minimum(static_prob, torch.minimum(weighting, radial))
     R, t = pose[:3, :3], pose[:3, 3]
     sub = lambda a: active_subgrid(a, t_par)
     matched_sub = sub(matched).reshape(-1)
-    slot = torch.where(matched_sub, sub(best_id).reshape(-1),
-                       torch.full_like(matched_sub, smap.capacity,
-                                       dtype=torch.int64))
+    own = sub(best_id).reshape(-1) - base
+    mine = matched_sub & (own >= 0) & (own < smap.capacity)
+    slot = torch.where(mine, own, torch.full_like(own, smap.capacity))
     n_sub = matched_sub.shape[0]
     payload = torch.cat([
         sub(raw.pos).reshape(-1, 3) @ R.T + t,
@@ -194,14 +205,15 @@ def associate_sparse(smap: SurfelMap, local: SurfelsLocal,
 
 def materialize_from_winners(smap: SurfelMap, local: SurfelsLocal,
                              won: torch.Tensor, flat: torch.Tensor,
-                             config: SFConfig) -> TexelImages:
+                             config: SFConfig, mesh=None) -> TexelImages:
     """Texel attribute images of `smap` (post-merge, projected as `local`)
     on the index-factor grid, reusing the PRE-merge winner set `won` and
     flat texel indices `flat` (SparseAssoc.is_winner, .flat): no second
     z-buffer.  The merge moves winners by millimetres, so z-order flips
     between the two renders are rare (the reference re-renders before
     clean, Reconstruction.cpp:300).  The row scatter of
-    texelmap.render_texel_images' capacity-bound branch."""
+    texelmap.render_texel_images' capacity-bound branch (under a mesh,
+    each rank's block combined over `map`)."""
     cam = config.camera
     F = config.fusion.index_factor
     rows4, cols4 = cam.height * F, cam.width * F
@@ -209,7 +221,9 @@ def materialize_from_winners(smap: SurfelMap, local: SurfelsLocal,
                       smap.conf[:, None], smap.init_time[:, None],
                       smap.last_time[:, None], smap.color,
                       smap.hist[:, None]], dim=1)
-    idx, has, attrs = scatter_winner_rows(won, flat, rows, rows4 * cols4)
+    idx, has, attrs = scatter_winner_rows(
+        won, flat, rows, rows4 * cols4, slot_base(smap.capacity, mesh)[1],
+        mesh)
     img = lambda a: a.reshape(rows4, cols4)
     return TexelImages(img(idx), img(has),
                        *[img(attrs[i]) for i in range(14)])
@@ -217,9 +231,10 @@ def materialize_from_winners(smap: SurfelMap, local: SurfelsLocal,
 
 def lifecycle_and_insert(smap: SurfelMap, killed: torch.Tensor,
                          new: NewSurfels, tick: torch.Tensor,
-                         config: SFConfig) -> SurfelMap:
+                         config: SFConfig, mesh=None) -> SurfelMap:
     """Elementwise lifecycle (copy_unstable.vert:118-124), the window-kill
-    verdicts, and the new-unstable append at the high-water mark."""
+    verdicts, and the new-unstable append at the high-water mark (under a
+    mesh, on this rank's slot block)."""
     fus = config.fusion
     tickf = tick.to(torch.float32)
     keep = smap.valid & ~killed
@@ -229,4 +244,5 @@ def lifecycle_and_insert(smap: SurfelMap, killed: torch.Tensor,
     stale_stable = (smap.last_time > 0) & \
         ((tickf - smap.last_time) > fus.time_delta)
     keep = (keep | (smap.valid & stale_stable)) & smap.valid
-    return append_at_watermark(pack_rows(smap), keep, smap.used, new, tickf)
+    return append_at_watermark(pack_rows(smap), keep, smap.used, new, tickf,
+                               mesh)

@@ -23,6 +23,7 @@ import torch
 from staticfusion_tpu_torch.config import SFConfig
 from staticfusion_tpu_torch.fusion.surfels import SurfelMap
 from staticfusion_tpu_torch.geometry.se3 import se3_inverse
+from staticfusion_tpu_torch.parallel.mesh import slot_base
 
 INT_MAX = 2**31 - 1
 INVALID = INT_MAX  # "no surfel" id (staticfusion_tpu/ops/zbuffer.py)
@@ -74,7 +75,11 @@ class SurfelsLocal(NamedTuple):
 
 
 def project_surfels(smap: SurfelMap, pose: torch.Tensor,
-                    config: SFConfig) -> SurfelsLocal:
+                    config: SFConfig, mesh=None) -> SurfelsLocal:
+    """The map (under a mesh: this rank's slot block) in camera
+    coordinates."""
+    if mesh is not None:
+        mesh.note("project", smap.capacity * mesh.n_map, smap.capacity)
     cam = config.camera
     F = config.fusion.index_factor
     T_inv = se3_inverse(pose)
@@ -113,12 +118,13 @@ def render_cull(smap: SurfelMap, local: SurfelsLocal, tick: torch.Tensor,
             & (local.v4 >= 0) & (local.v4 < cam.height * F))
 
 
-def packed_keys(values: torch.Tensor, cap: float, ib: int) -> torch.Tensor:
-    """(quantised value << ib) | id for ids 0..N-1, values clipped to
-    [0, cap] after truncation toward zero."""
+def packed_keys(values: torch.Tensor, cap: float, ib: int,
+                base: int = 0) -> torch.Tensor:
+    """(quantised value << ib) | id for ids base..base+N-1, values clipped
+    to [0, cap] after truncation toward zero."""
     dlevels = (1 << (31 - ib)) - 1
     q = torch.clamp((values * (dlevels / cap)).to(torch.int64), 0, dlevels)
-    ids = torch.arange(values.shape[0], device=values.device)
+    ids = base + torch.arange(values.shape[0], device=values.device)
     return (q << ib) | ids
 
 
@@ -134,48 +140,68 @@ def scatter_min(target: torch.Tensor, keys: torch.Tensor,
     return buf
 
 
+def _min_over_map(buf: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """A scatter-min buffer combined over `map`; the sentinel slot n stays
+    out of the reduce."""
+    if mesh is None:
+        return buf
+    return torch.cat([mesh.all_reduce(buf[:n], "min", "map"), buf[n:]])
+
+
 def zbuffer(target: torch.Tensor, values: torch.Tensor, cap: float,
-            ib: int, n: int):
+            ib: int, n: int, base: int = 0, mesh=None):
     """Per-slot minimum of non-negative float32 `values` over elements
-    0..N-1 routed to `target` (n = no slot), ties to the smaller index.
-    Returns (buf, key, winner): buf (n+1,) the per-slot minimum key,
-    key (N,) each element's key (buf[target] == key marks the winners),
-    winner (n,) the winning index per slot, INT_MAX where empty.
+    base..base+N-1 routed to `target` (n = no slot), ties to the smaller
+    index.  Returns (buf, key, winner): buf (n+1,) the per-slot minimum
+    key, key (N,) each element's key (buf[target] == key marks the
+    winners), winner (n,) the winning index per slot, INT_MAX where empty.
 
     Up to PACKED_MAX_ID_BITS id bits one scatter-min of packed keys
     (values quantised over [0, cap]); above, two: the float32 bits viewed
     as int32, then the indices of the elements whose bits equal their
-    slot's minimum."""
+    slot's minimum.  Under a mesh the elements are this rank's slot block
+    (ids from `base`), and each scatter-min is combined over `map`, so
+    every rank holds the single-process buffer."""
+    if mesh is not None:
+        mesh.note("zbuffer", values.shape[0] * mesh.n_map, values.shape[0])
     if ib <= PACKED_MAX_ID_BITS:
-        key = packed_keys(values, cap, ib)
-        buf = scatter_min(target, key, n)
+        key = packed_keys(values, cap, ib, base)
+        buf = _min_over_map(scatter_min(target, key, n), n, mesh)
         winner = torch.where(buf[:n] != INT_MAX, buf[:n] & ((1 << ib) - 1),
                              buf[:n])
         return buf, key, winner
     bits = values.to(torch.float32).contiguous().view(torch.int32).to(
         torch.int64)
-    best = scatter_min(target, bits, n)
+    best = _min_over_map(scatter_min(target, bits, n), n, mesh)
     target2 = torch.where(bits == best[target], target,
                           torch.full_like(target, n))
-    key = torch.arange(values.shape[0], device=values.device)
-    buf = scatter_min(target2, key, n)
+    key = base + torch.arange(values.shape[0], device=values.device)
+    buf = _min_over_map(scatter_min(target2, key, n), n, mesh)
     return buf, key, buf[:n]
 
 
 def scatter_winner_rows(won: torch.Tensor, flat: torch.Tensor,
-                        rows: torch.Tensor, S: int):
+                        rows: torch.Tensor, S: int, base: int = 0,
+                        mesh=None):
     """(idx, has, attrs): each winning surfel writes its id and its
     (N, C) attribute row to its texel (unique targets, so the writes are
     deterministic).  idx (S,) int64, INT_MAX where no surfel won; attrs
     (C, S), 0 there.  The id goes through an int64 buffer of its own, so
-    it stays exact at any capacity."""
+    it stays exact at any capacity.  Under a mesh each rank writes the
+    winners of its slot block (ids from `base`) and zeros elsewhere; a
+    SUM over `map` of the rows and a MIN of the ids combine them
+    exactly."""
     dev = rows.device
     tgt = torch.where(won, flat, torch.full_like(flat, S))
     out = torch.zeros((S + 1, rows.shape[1]), device=dev)
     out.index_copy_(0, tgt, rows.contiguous())
     idx = torch.full((S + 1,), INT_MAX, dtype=torch.int64, device=dev)
-    idx.index_copy_(0, tgt, torch.arange(rows.shape[0], device=dev))
-    return idx[:S], idx[:S] != INT_MAX, out[:S].T
+    idx.index_copy_(0, tgt, base + torch.arange(rows.shape[0], device=dev))
+    idx, out = idx[:S], out[:S]
+    if mesh is not None:
+        idx = mesh.all_reduce(idx, "min", "map")
+        out = mesh.all_reduce(out, "sum", "map")
+    return idx, idx != INT_MAX, out.T
 
 
 def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
@@ -183,14 +209,17 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
                         conf_threshold: float = 0.0,
                         z_min: float = 0.0,
                         time_delta: float | None = None,
-                        materialize: str = "auto") -> TexelImages:
+                        materialize: str = "auto", mesh=None) -> TexelImages:
     """Z-buffered surfel render + attribute images, culled as
     `render_cull` (`time_delta` None keeps the config's freshness window;
     viz passes inf, as the GL draw passes render the whole map).  `materialize`
     "gather" reads the attributes at the winner ids (texel-count bound),
     "scatter" has each winning surfel write its row to its texel
     (capacity bound); "auto" gathers when the texel grid is at most twice
-    the map's capacity.  Both give the same images."""
+    the map's capacity.  Both give the same images.  Under a mesh `smap`
+    and `local` are this rank's slot block and the images come out whole
+    on every rank, through the scatter (a winner's row lives on the rank
+    that owns it)."""
     cam = config.camera
     fus = config.fusion
     F = fus.index_factor
@@ -201,8 +230,9 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
                      time_delta)
     flat = torch.where(ok, local.v4 * cols4 + local.u4,
                        torch.full_like(local.u4, S))
+    cap, base = slot_base(smap.capacity, mesh)
     buf, key, winner = zbuffer(flat, local.pos[:, 2], fus.depth_max,
-                               id_bits_for(smap.capacity), S)
+                               id_bits_for(cap), S, base, mesh)
     has = winner != INT_MAX
 
     stacked = torch.stack([
@@ -210,8 +240,9 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
         local.normal[:, 0], local.normal[:, 1], local.normal[:, 2],
         smap.radius, smap.conf, smap.init_time, smap.last_time,
         smap.color[:, 0], smap.color[:, 1], smap.color[:, 2], smap.hist])
-    use_gather = (S <= 2 * smap.capacity if materialize == "auto"
-                  else materialize == "gather")
+    use_gather = mesh is None and (S <= 2 * smap.capacity
+                                   if materialize == "auto"
+                                   else materialize == "gather")
     if use_gather:
         safe = torch.where(has, winner, torch.zeros_like(winner))
         attrs = torch.where(has[None, :], stacked[:, safe],
@@ -219,7 +250,7 @@ def render_texel_images(smap: SurfelMap, local: SurfelsLocal,
         idx = winner
     else:
         idx, _, attrs = scatter_winner_rows(ok & (buf[flat] == key), flat,
-                                            stacked.T, S)
+                                            stacked.T, S, base, mesh)
     img = lambda a: a.reshape(rows4, cols4)
     return TexelImages(img(idx), img(has),
                        *[img(attrs[i]) for i in range(14)])

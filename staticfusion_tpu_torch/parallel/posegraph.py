@@ -1,6 +1,5 @@
 """Keyframe pose-graph optimisation (port of
-staticfusion_tpu/parallel/posegraph.py on one device; its sharded solve
-is not ported).
+staticfusion_tpu/parallel/posegraph.py).
 
 Gauss-Newton on SE(3) over fixed-capacity constraint arrays: right
 perturbations xi_i of each pose, residual r = log(Z^-1 T_i^-1 T_j), the
@@ -127,6 +126,33 @@ def optimize(g: PoseGraph, iters: int = 10,
     for _ in range(iters):
         H, b = _normal_equations(g.poses, g.ci, g.cj, g.cT, g.cw)
         g = g._replace(poses=_gn_update(g.poses, H, b, damping))
+    return g
+
+
+def optimize_sharded(g: PoseGraph, mesh, axis: str = "world",
+                     iters: int = 10, damping: float = 1e-6) -> PoseGraph:
+    """Distributed Gauss-Newton: each rank of `mesh`'s `axis` forms the
+    normal equations of its block of constraints, a SUM all-reduce
+    combines H and b, and the (small, dense) 6M x 6M solve runs
+    replicated.  Equal to `optimize` up to float addition order.  The
+    constraint count must divide by the axis size; pad with zero-weight
+    constraints (`empty_graph` slots are zero-weight already)."""
+    n = mesh.axis_size(axis)
+    C = g.ci.shape[0]
+    if C % n:
+        raise ValueError(f"{C} constraints do not divide over {n} ranks")
+    lo = C // n * mesh.axis_index(axis)
+    part = lambda a: a[lo:lo + C // n]
+    mesh.note("constraints", C, C // n)
+    for _ in range(iters):
+        H, b = _normal_equations(g.poses, part(g.ci), part(g.cj),
+                                 part(g.cT), part(g.cw))
+        M = H.shape[0]
+        hb = mesh.all_reduce(torch.cat([H.reshape(-1), b.reshape(-1)]),
+                             "sum", axis)
+        H, b = hb[:M * 6 * M * 6].reshape(H.shape), hb[M * 6 * M * 6:]
+        g = g._replace(poses=_gn_update(g.poses, H, b.reshape(M, 6),
+                                        damping))
     return g
 
 

@@ -41,13 +41,13 @@ class SolverResult(NamedTuple):
 
 def _solve_at_level(cur: PyramidLevel, warped: WarpedImages, labels,
                     onehot, b_segm, reg_ata, level_idx: int, T_odo,
-                    twist_old, config: SFConfig, kb=None):
+                    twist_old, config: SFConfig, kb=None, mesh=None):
     """One warp-free solver iteration at a level."""
     inter = calculate_coords(cur, warped)
     deriv = calculate_derivatives(inter, cur, warped)
     w = compute_weights(deriv, inter.valid)
     prior = compute_seg_prior(onehot, inter.null, deriv.ddt, config)
-    sys = build_jacobian(inter, deriv, w, labels, onehot, config)
+    sys = build_jacobian(inter, deriv, w, labels, onehot, config, mesh)
     # The coarsest level restarts the segmentation from the prior
     # (FrontEnd.cpp:604); later levels refine the carried solution.
     b_init = prior.b_prior if level_idx == 0 else b_segm
@@ -61,12 +61,14 @@ def _solve_at_level(cur: PyramidLevel, warped: WarpedImages, labels,
 
 def run_solver(cur_pyr: Pyramid, pred_pyr: Pyramid, twist_old: torch.Tensor,
                config: SFConfig, kb=None,
-               T_init: torch.Tensor | None = None) -> SolverResult:
+               T_init: torch.Tensor | None = None,
+               mesh=None) -> SolverResult:
     """Clustering + coarse-to-fine joint IRLS.  The iteration starts at
     `T_init`, by default identity (the tracking case); wide-baseline
     keyframe verification (pipeline/keyframes.py) passes the
     chain-predicted relative pose, since a baseline of metres is far
-    outside the solver's basin from identity."""
+    outside the solver's basin from identity.  Under a mesh the Jacobian
+    rows divide over `pix` (solver/irls.py::build_jacobian)."""
     dev = cur_pyr[0].depth.device
     clustering = cluster_frame(cur_pyr, config)
     reg_ata = reg_normal_matrix(clustering.connectivity,
@@ -96,7 +98,7 @@ def run_solver(cur_pyr: Pyramid, pred_pyr: Pyramid, twist_old: torch.Tensor,
                 warped = warp_images_gather(pred, cur.depth, T_odo, fovh)
             T_odo, b_segm, converged, ddt_lvl = _solve_at_level(
                 cur, warped, labels, onehot, b_segm, reg_ata, level_idx,
-                T_odo, twist_old, config, kb=kb)
+                T_odo, twist_old, config, kb=kb, mesh=mesh)
             if bool(converged):
                 break
         if image_level == 0:

@@ -12,6 +12,7 @@ import torch
 
 from staticfusion_tpu_torch.config import NUM_CLUSTERS, SFConfig
 from staticfusion_tpu_torch.ops.smallsolve import spd_solve_fast
+from staticfusion_tpu_torch.parallel.mesh import gather_rows, local_rows
 
 
 class SegPrior(NamedTuple):
@@ -79,11 +80,17 @@ def solve_segm_iteration(aver_res_label: torch.Tensor,
 
 def build_segm_image(labels_full: torch.Tensor, b_segm: torch.Tensor,
                      per_cluster_residual: torch.Tensor,
-                     config: SFConfig) -> torch.Tensor:
+                     config: SFConfig, mesh=None) -> torch.Tensor:
     """Per-pixel static probability (SegmentationBackground.cpp:176-197);
-    NaN per-cluster residuals compare false, as in the reference."""
+    NaN per-cluster residuals compare false, as in the reference.  Under
+    a mesh each rank computes its row block and the image is
+    all-gathered over `pix`."""
     k = NUM_CLUSTERS
     dev = b_segm.device
+    rows, cols = labels_full.shape
+    labels_full = local_rows(labels_full, mesh)
+    if mesh is not None:
+        mesh.note("segm", (rows, cols), labels_full.numel())
     b_ext = torch.cat([torch.clamp(b_segm, 0.0, 1.0),
                        torch.ones(1, dtype=b_segm.dtype, device=dev)])
     lbl = torch.clamp(labels_full, 0, k).long()
@@ -91,5 +98,6 @@ def build_segm_image(labels_full: torch.Tensor, b_segm: torch.Tensor,
     res_ext = torch.cat([per_cluster_residual,
                          torch.full((1,), float("nan"), device=dev)])
     rescue = res_ext[lbl] < config.rescue_residual_threshold
-    return torch.where(rescue & (labels_full < k),
-                       torch.maximum(b_img, 1.0 - b_img), b_img)
+    return gather_rows(torch.where(rescue & (labels_full < k),
+                                   torch.maximum(b_img, 1.0 - b_img), b_img),
+                       mesh, rows)
