@@ -66,7 +66,12 @@ Phases (each prints one line; any failure exits non-zero):
      per keyframe tick, K3 launches; on must beat off with a closure.
      The JAX package's committed figures are printed beside, not gated;
      per run of phases 8-10 the kernel launches (counts set to 0 before
-     it);
+     it).  The sequence is rendered into the run's own adversarial cache
+     ($SF_ADV_CACHE); the on run's row is written by
+     apps/accuracy_bench.py's row code and apps/check_closures.py must
+     read the same closures and false closures back from it (the
+     closures' T errors are check_closures.t_errors, here and in phase
+     9);
   11. live: the live path and the viewers at SFConfig().  (a) A producer
      thread sends 60 frames of run_camera's synthetic sequence with the
      port's SFRD writer over a socket pair at 30 Hz, each stamped with
@@ -104,14 +109,27 @@ Phases (each prints one line; any failure exits non-zero):
      one-process median.  Then `run_multihost --spawn 2` once, and
      `optimize_sharded` on 2 ranks (threads of this process on the card)
      against `optimize` within 1e-5, with the constraints per rank;
-  13. profile: torch.profiler counts the device kernels of one K3 call
+  13. tools: the evaluation tools of staticfusion_tpu_torch/apps on the
+     card, no CPU fallback.  (a) accuracy_bench.main --profiles walk_xyz
+     --factors 4 --frames 40 --seed 1 --json: the row's keys are the JAX
+     tool's, fixed_tiers false, ATE < 0.05 m and IoU > 0.55
+     (tests/test_accuracy.py's F=4 limits), K1 once a frame, K3 4-6 times
+     a frame, K2 never; (b) is phase 10's check_closures read-back; (c)
+     `python -m staticfusion_tpu_torch.apps.stream_feed --to
+     tcp://127.0.0.1:PORT --frames 60 --fps 30` as a separate process
+     feeds run_camera.main --source listen://PORT --replay here: the
+     feeder exits 0, 59 poses, ATE < 0.02 m (every join and wait after
+     60 s); (d) smoke_e2e: ATE < 0.02 m; (e) calibrate_loop's
+     populations on the card and on the CPU: fp_dist within 1e-3
+     relative, residual within 1e-3 m (both printed);
+  14. profile: torch.profiler counts the device kernels of one K3 call
      at each level size and of one K1 call (exactly one each) and their
      device times, and the device kernels and busy time per main-path
      frame over 3 more frames.  Last, because a profiler run before the
      main path coincided with slower frames;
 then the script's total time, a JSON line with the kernels (their
 launches on the main path, in each gate, app, branches, loop-gate,
-corridor, live and parallel run (summed over the mesh's ranks), and K3's
+corridor, live, parallel (summed over the mesh's ranks) and tools run, and K3's
 launches per keyframe tick of the corridor run),
 and last a JSON line
 {"ok": true, "device": {...}}.  Imports no JAX.
@@ -188,6 +206,21 @@ PAR_RANK_TOL = 1e-6     # the ranks of one run print the same poses
 PAR_GRAPH_POSES = 64
 PAR_GRAPH_TOL = 1e-5
 PAR_TIMEOUT = 300       # seconds per rank process
+# Phase 13 (tools): the frames of accuracy_bench's walk run, the keys of
+# the JAX tool's row (scripts/accuracy_bench.py:98-115), and the
+# tolerances of calibrate_loop's populations, card against CPU: fp_dist
+# relative; the verification residual (a median over the pair's covisible
+# pixels, m) absolute, as tests/test_torch_tools.py holds it against JAX.
+# A negative pair's residual moves with the solver's float order: 0.041111
+# on an H100 against 0.041010 on its host's CPU (2.5e-3 relative).
+TOOLS_FRAMES = 40
+JAX_ROW_KEYS = ("profile", "index_factor", "frames", "post_factor",
+                "route_factor", "lambda_reg", "seed", "res_factor", "loop",
+                "smooth_skip", "closures", "closure_events", "smoothings",
+                "db_halvings", "ate_rmse_m", "rpe_rmse_m", "seg_iou", "fps",
+                "capacity", "capacity_events", "fixed_tiers")
+CALIB_RTOL = 1e-3
+CALIB_RESID_ATOL = 1e-3
 # tests/test_accuracy.py's gates: (name, profile, width, height, capacity,
 # index_factor, frames, ATE limit, IoU floor or None).  Seed 0.
 GATES = (
@@ -1087,11 +1120,12 @@ def phase_app(card, tmp):
     return results, data, wall_med
 
 
-def _run_frames(slam, frames, batch: bool, counters):
+def _run_frames(slam, frames, batch: bool, counters, probs_out=None):
     """Frames through `slam` (per frame through `process`, or one
     `process_batch` call) with the launch counts set to 0 before: ->
     (launches, per-step ms by recorded frame, keyframe ticks, K3 launches
-    in the ticks' closure work, seconds).  Each slam_step is timed with
+    in the ticks' closure work, seconds).  A list given as `probs_out`
+    (batch only) gets process_batch's static-probability stack.  Each slam_step is timed with
     CUDA events; each keyframe tick's closure work (SlamSystem.
     _maybe_close_loop: fingerprint, query, verification, pose graph,
     deformation) too, and a tick's ms is its step's plus that."""
@@ -1121,8 +1155,12 @@ def _run_frames(slam, frames, batch: bool, counters):
     t0 = time.perf_counter()
     with timed_slam_step() as events:
         if batch:
-            slam.process_batch([f[0] for f in frames], [f[1] for f in frames],
-                               [i / 30.0 for i in range(len(frames))])
+            probs = slam.process_batch(
+                [f[0] for f in frames], [f[1] for f in frames],
+                [i / 30.0 for i in range(len(frames))],
+                collect_prob=probs_out is not None)
+            if probs_out is not None:
+                probs_out.append(probs)
         else:
             for i, f in enumerate(frames):
                 slam.process(f[0], f[1], i / 30.0)
@@ -1285,19 +1323,11 @@ def _mini_corridor(cfg, n):
     return frames, np.stack(gt)
 
 
-def _t_errors(closures, gt):
-    """Translation error (m) of each accepted closure's T_rel against the
-    ground-truth relative pose (scripts/check_closures.py's measure)."""
-    return [float(np.linalg.norm(
-        np.asarray(c["T_rel"])[:3, 3]
-        - (np.linalg.inv(gt[c["keyframe"]]) @ gt[c["frame"]])[:3, 3]))
-        for c in closures]
-
-
 def phase_loop_gates(card):
     """tests/test_keyframes.py's three loop-closure pipeline gates through
     the port on the card, at the tests' configs, frame counts, seeds and
     thresholds (module docstring, phase 9)."""
+    from staticfusion_tpu_torch.apps import check_closures
     from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
                                                LoopClosureConfig, SFConfig)
     from staticfusion_tpu_torch.pipeline.system import SlamSystem
@@ -1371,7 +1401,7 @@ def phase_loop_gates(card):
         name = f"loop corridor mini {'on' if on else 'off'}"
         report(name, slam, *run, f"{n} frames 160x120 (rendered in "
                f"{gen_s:.1f} s), end error {errs[on]:.4f} m")
-    t_err = _t_errors(slam.loop_closures, gt)
+    t_err = check_closures.t_errors(slam.loop_closures, gt)
     check(len(slam.loop_closures) >= 1, "loop corridor mini: no closure")
     check(all(c["residual"] < cfg.loop.max_residual
               for c in slam.loop_closures) and max(t_err) < 0.5,
@@ -1387,13 +1417,17 @@ def phase_loop_gates(card):
     return results
 
 
-def phase_corridor(card):
+def phase_corridor(card, tmp):
     """The production corridor_loop profile, 300 frames, at the
     configuration of ACC_r5_corridor_{off,on}_s0.json (QVGA, F=4, post 2,
     capacity 262144, lambda_reg 1.2, seed 0), loop closure off then on
-    (module docstring, phase 10)."""
+    (module docstring, phase 10).  The sequence is rendered into
+    $SF_ADV_CACHE; the on run's row is written to `tmp` by
+    apps/accuracy_bench.py's row code and read back by
+    apps/check_closures.py."""
     import dataclasses
 
+    from staticfusion_tpu_torch.apps import accuracy_bench, check_closures
     from staticfusion_tpu_torch.config import (CameraConfig, FusionConfig,
                                                LoopClosureConfig, SFConfig)
     from staticfusion_tpu_torch.io import adversarial as adv
@@ -1405,20 +1439,22 @@ def phase_corridor(card):
     cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, lambda_reg=1.2))
     n = CORRIDOR_FRAMES
     t0 = time.perf_counter()
-    frames, gt = adv.make_adversarial_sequence(cfg, n, "corridor_loop",
-                                               seed=0)
+    frames, gt = adv.make_adversarial_sequence(
+        cfg, n, "corridor_loop", seed=0, cache_dir=accuracy_bench.cache_dir())
     gen_s = time.perf_counter() - t0
     print(f"[corridor] generator: corridor_loop, {n} frames 320x240, seed "
-          f"0, in {gen_s:.1f} s on the host", flush=True)
+          f"0, in {gen_s:.1f} s on the host (rendered and cached)",
+          flush=True)
     results, ates = {}, {}
     for on in (False, True):
         slam = SlamSystem(cfg.replace(loop=LoopClosureConfig(enabled=on)))
+        probs = []
         launches, step_ms, tick_ms, tick_k3, run_s = _run_frames(
-            slam, frames, True, counters)
+            slam, frames, True, counters, probs_out=probs)
         _app_launch_check("corridor", launches, n)
         ates[on] = slam.ate(np.arange(n) / 30.0, gt)
-        t_err = _t_errors(slam.loop_closures, gt)
-        false = sum(e > 0.5 for e in t_err)
+        t_err = check_closures.t_errors(slam.loop_closures, gt)
+        false = sum(e > check_closures.FALSE_CLOSURE_M for e in t_err)
         plain, tick = _loop_stats(step_ms, tick_ms)
         name = f"corridor {'on' if on else 'off'}"
         results[name] = {"launches": launches, "ticks": len(tick_ms),
@@ -1437,12 +1473,27 @@ def phase_corridor(card):
               + f"; K3 launches {launches['irls_solve']}; run {run_s:.1f} "
               f"s; on {card}", flush=True)
         if on:
-            closures = len(slam.loop_closures)
+            closures, on_false = len(slam.loop_closures), false
+            row = accuracy_bench.make_row(slam, "corridor_loop", 0, frames,
+                                          gt, probs[0])
     check(closures >= 1, "corridor: loop closure on fired no closure")
     check(ates[True] < ates[False], f"corridor: ATE with loop closure "
           f"{ates[True]} m not below without {ates[False]} m")
+    path = os.path.join(tmp, "ACC_r5_corridor_on_s0.json")
+    with open(path, "w") as f:
+        json.dump([row], f, indent=2)
+    (summary,) = check_closures.check(path)
+    check(summary["closures"] == closures
+          and summary["false_closures_gt_0p5m"] == on_false,
+          f"corridor: check_closures on the written row {summary} against "
+          f"{closures} closures, {on_false} false")
+    check(row["ate_rmse_m"] == round(float(ates[True]), 5),
+          f"corridor: the row's ATE {row['ate_rmse_m']} is not the run's")
     print(f"[corridor] ok: ATE on {ates[True]:.5f} m < off "
-          f"{ates[False]:.5f} m with {closures} closures on {card}.  The JAX "
+          f"{ates[False]:.5f} m with {closures} closures on {card}; the on "
+          f"row (accuracy_bench) has IoU {row['seg_iou']}, RPE "
+          f"{row['rpe_rmse_m']} m, and check_closures reads {summary} back "
+          f"from it.  The JAX "
           f"package's committed run of this configuration (accuracy, not a "
           f"gate; it ran with fixed tiers, which the port does not have): "
           f"on 1.702 m, off 1.894 m, 8 closures, 1 false "
@@ -2017,6 +2068,139 @@ def phase_parallel(card):
     return results
 
 
+def _launched(counters, fn):
+    """fn() with the launch counts set to 0 before it: -> (its result,
+    launches, seconds to a synchronize after it)."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: c.launches for k, c in counters.items()},
+            time.perf_counter() - t0)
+
+
+def _per_frame(launches, n):
+    return ", ".join(f"{k} {v / n:.3f}" for k, v in launches.items())
+
+
+def phase_tools(card, tmp):
+    """The evaluation tools of staticfusion_tpu_torch/apps on the card
+    (phase 13 of the module docstring), writing into `tmp`.  Returns
+    {run: {"launches": ...}}."""
+    import socket
+
+    from staticfusion_tpu_torch.apps import (accuracy_bench, calibrate_loop,
+                                             run_camera, smoke_e2e)
+    from staticfusion_tpu_torch.config import SFConfig
+    from staticfusion_tpu_torch.io import synthetic
+    from staticfusion_tpu_torch.io.trajectory import (ate_rmse,
+                                                      read_tum_trajectory)
+    t_phase = time.perf_counter()
+    counters = _counters()
+    results = {}
+
+    # (a) accuracy_bench.main on the card.
+    n = TOOLS_FRAMES
+    path = os.path.join(tmp, "ACC_tools_walk_s1.json")
+    rows, launches, run_s = _launched(counters, lambda: accuracy_bench.main(
+        ["--profiles", "walk_xyz", "--factors", "4", "--frames", str(n),
+         "--seed", "1", "--json", path]))
+    (row,) = rows
+    with open(path) as f:
+        check(json.load(f) == rows, "tools: accuracy_bench's JSON is not "
+              "its rows")
+    check(tuple(row) == JAX_ROW_KEYS, f"tools: row keys {tuple(row)}")
+    check(row["fixed_tiers"] is False, "tools: fixed_tiers is not false")
+    check(row["ate_rmse_m"] < 0.05 and row["seg_iou"] is not None
+          and row["seg_iou"] > 0.55, f"tools: walk_xyz F=4 seed 1 ATE "
+          f"{row['ate_rmse_m']} (< 0.05), IoU {row['seg_iou']} (> 0.55)")
+    check(n - 1 <= launches["preprocess_depth"] <= n
+          and 4.0 <= launches["irls_solve"] / n <= 6.0
+          and launches["spd_solve"] == launches["spd_inverse"] == 0,
+          f"tools: accuracy_bench launches {launches}")
+    results["tools accuracy_bench"] = {"launches": launches}
+    print(f"  (a) accuracy_bench walk_xyz F=4, {n} frames, seed 1: ATE "
+          f"{row['ate_rmse_m']} m (< 0.05), RPE {row['rpe_rmse_m']} m, IoU "
+          f"{row['seg_iou']} (> 0.55), fps {row['fps']} (host dispatch, "
+          f"not a speed), keys = the JAX tool's, fixed_tiers false; run "
+          f"{run_s:.1f} s (rendering included); launches per frame: "
+          f"{_per_frame(launches, n)}", flush=True)
+
+    # (c) stream_feed in a process of its own feeds run_camera here.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    traj = os.path.join(tmp, "live_trajectory.txt")
+    feeder = subprocess.Popen(
+        [sys.executable, "-m", "staticfusion_tpu_torch.apps.stream_feed",
+         "--to", f"tcp://127.0.0.1:{port}", "--frames", str(LIVE_FRAMES),
+         "--fps", str(LIVE_HZ)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _, launches, run_s = _launched(counters, lambda: run_camera.main(
+            ["--source", f"listen://{port}", "--replay", "--out", traj]))
+        out, err = feeder.communicate(timeout=LIVE_TIMEOUT)
+    finally:
+        if feeder.poll() is None:
+            feeder.kill()
+        feeder.wait(LIVE_TIMEOUT)
+    check(feeder.returncode == 0, f"tools: stream_feed exited "
+          f"{feeder.returncode}: {err[-2000:]}")
+    check(f"streamed {LIVE_FRAMES} frames" in out, f"tools: stream_feed "
+          f"said {out!r}")
+    times, poses = read_tum_trajectory(traj)
+    _, gt = synthetic.make_sequence(SFConfig(), LIVE_FRAMES, run_camera.TWIST)
+    check(len(times) == LIVE_FRAMES - 1, f"tools: run_camera wrote "
+          f"{len(times)} poses, not {LIVE_FRAMES - 1}")
+    # The trajectory holds frames 1..59 in order, stamped by the feeder.
+    ate = ate_rmse(times, poses, times, gt[1:])
+    check(ate < ATE_LIMIT, f"tools: stream_feed -> run_camera ATE {ate}")
+    results["tools stream_feed->run_camera"] = {"launches": launches}
+    print(f"  (c) stream_feed (a separate process, tcp://127.0.0.1:{port} "
+          f"at {LIVE_HZ:g} Hz) -> run_camera --source listen://{port} "
+          f"--replay: {len(times)} poses, ATE {ate:.5f} m (< {ATE_LIMIT}); "
+          f"run {run_s:.1f} s; launches per frame: "
+          f"{_per_frame(launches, LIVE_FRAMES)}", flush=True)
+
+    # (d) smoke_e2e on the card.
+    res, launches, run_s = _launched(counters, lambda: smoke_e2e.main([]))
+    check(res["ate"] < ATE_LIMIT, f"tools: smoke_e2e ATE {res['ate']}")
+    results["tools smoke_e2e"] = {"launches": launches}
+    print(f"  (d) smoke_e2e: ATE {res['ate']:.5f} m (< {ATE_LIMIT}); run "
+          f"{run_s:.1f} s; launches {launches}", flush=True)
+
+    # (e) calibrate_loop's populations, card against CPU.
+    (pos, neg), launches, run_s = _launched(
+        counters, lambda: calibrate_loop.populations("cuda"))
+    pos_h, neg_h = calibrate_loop.populations("cpu")
+    pairs = list(zip(pos + neg, pos_h + neg_h))
+    worst_fp = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in pairs)
+    worst_r = max(0.0 if a[1] == b[1] else abs(a[1] - b[1])
+                  for a, b in pairs)
+    for tag, card_p, cpu_p in (("POS", pos, pos_h), ("NEG", neg, neg_h)):
+        for (fp, r), (fp_h, r_h) in zip(card_p, cpu_p):
+            print(f"      {tag} fp_dist {fp:.6e} (CPU {fp_h:.6e}), "
+                  f"residual {r:.6f} (CPU {r_h:.6f})", flush=True)
+    check(worst_fp <= CALIB_RTOL and worst_r <= CALIB_RESID_ATOL,
+          f"tools: calibrate_loop card vs CPU: fp_dist {worst_fp:.3e} "
+          f"relative (> {CALIB_RTOL}?), residual {worst_r:.3e} m (> "
+          f"{CALIB_RESID_ATOL}?)")
+    results["tools calibrate_loop"] = {"launches": launches}
+    print(f"  (e) calibrate_loop: {len(pos)} positive and {len(neg)} negative "
+          f"pairs, card vs CPU: fp_dist within {worst_fp:.3e} relative (<= "
+          f"{CALIB_RTOL}), residual within {worst_r:.3e} m (<= "
+          f"{CALIB_RESID_ATOL}); run {run_s:.1f} s on the card; launches "
+          f"{launches}", flush=True)
+    print(f"[tools] ok: accuracy_bench, stream_feed -> run_camera, "
+          f"smoke_e2e and calibrate_loop on {card} (check_closures ran in "
+          f"the corridor phase); phase {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2045,18 +2229,25 @@ def main() -> int:
         launches, main_run = phase_main(card)
         phase_cross()
         gates = phase_gates(card)
+        # The adversarial sequences of the corridor and tools phases are
+        # rendered into a cache of this run's own.
+        adv_cache = tempfile.TemporaryDirectory(prefix="sf_adv_")
+        os.environ["SF_ADV_CACHE"] = adv_cache.name
         with tempfile.TemporaryDirectory(prefix="sf_app_") as app_tmp:
             app, app_data, app_wall = phase_app(card, app_tmp)
             gates.update({k: {"launches": v} for k, v in app.items()})
             gates.update(phase_branches(card))
             gates.update(phase_loop_gates(card))
-            corridor = phase_corridor(card)
+            corridor = phase_corridor(card, app_tmp)
             gates.update(corridor)
             on = corridor["corridor on"]
             k3["launches_per_keyframe_tick"] = (on["tick_k3"]
                                                 / max(on["ticks"], 1))
             gates.update(phase_live(card, main_run, app_data, app_wall))
         gates.update(phase_parallel(card))
+        with tempfile.TemporaryDirectory(prefix="sf_tools_") as tools_tmp:
+            gates.update(phase_tools(card, tools_tmp))
+        adv_cache.cleanup()
         phase_profile(k1, k3, k3_systems, main_run)
     except (SmokeError, AssertionError, RuntimeError, ValueError,
             OSError) as e:

@@ -13,7 +13,9 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "staticfusion_tpu_torch"
 
-_BLOCKED_IMPORT = r"""
+# Makes any import of JAX or the JAX package raise in the process it runs
+# in (python -c BLOCKER + code).
+BLOCKER = r"""
 import importlib, importlib.abc, pathlib, sys
 
 class Block(importlib.abc.MetaPathFinder):
@@ -24,6 +26,9 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+"""
+
+_BLOCKED_IMPORT = BLOCKER + r"""
 root = pathlib.Path(sys.argv[1])
 mods = sorted(".".join(p.relative_to(root.parent).with_suffix("").parts)
               for p in root.rglob("*.py"))
