@@ -1,0 +1,9 @@
+"""Milliseconds a frame in `fusion.backend.fuse_frame` (span `fusion`,
+synchronised at both ends), over the traced run's span frames."""
+
+
+def read(trace):
+    rec = trace.spans.get("fusion") or []
+    if not rec or trace.frames_timed <= 0:
+        return None
+    return 1e3 * sum(s for s, _ in rec) / trace.frames_timed
